@@ -1,0 +1,192 @@
+"""Structured block mesh + boundary-condition system.
+
+Port of deepflame_tpu/mesh/structured.py. A uniform structured block; stencil
+operations are slices of ghost-padded tensors. Fields are (..., nx, ny, nz):
+every operator acts on the last three dimensions, so a leading batch
+dimension (species, velocity components) rides along.
+
+Boundary conditions are affine ghost relations ghost = a * owner + b, which
+splits every discrete operator into an implicit part (homogeneous ghosts) and
+a source part (b). Kinds: fixedValue, zeroGradient, fixedGradient, cyclic,
+symmetry, empty, inletOutlet, affine. Processor (inter-shard) boundaries are
+multi-device and not part of this port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from ..device import resolve_device
+
+__all__ = ["StructuredMesh", "BC", "FieldBCs", "pad_field", "extend_padded",
+           "fixed_value", "zero_gradient", "cyclic", "fixed_gradient",
+           "symmetry", "empty"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredMesh:
+    """Uniform structured block mesh (3D; 1D/2D cases use size-1 axes with
+    'empty' BCs). `device` is where its fields live."""
+    nx: int
+    ny: int
+    nz: int
+    dx: float
+    dy: float
+    dz: float
+    x0: float = 0.0
+    y0: float = 0.0
+    z0: float = 0.0
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.nx, self.ny, self.nz)
+
+    @property
+    def n_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def volume(self) -> float:
+        return self.dx * self.dy * self.dz
+
+    @property
+    def spacing(self) -> tuple[float, float, float]:
+        return (self.dx, self.dy, self.dz)
+
+    def cell_centers(self, dtype=torch.float64):
+        ar = lambda n, o, h: o + (torch.arange(n, dtype=dtype,
+                                               device=self.device) + 0.5) * h
+        return torch.meshgrid(ar(self.nx, self.x0, self.dx),
+                              ar(self.ny, self.y0, self.dy),
+                              ar(self.nz, self.z0, self.dz), indexing="ij")
+
+    @staticmethod
+    def box(lengths: Sequence[float], cells: Sequence[int],
+            origin: Sequence[float] = (0.0, 0.0, 0.0),
+            device=None) -> "StructuredMesh":
+        """Box mesh on `device` (default: the CUDA card, which must exist)."""
+        nx, ny, nz = cells
+        Lx, Ly, Lz = lengths
+        return StructuredMesh(nx, ny, nz, Lx / nx, Ly / ny, Lz / nz,
+                              origin[0], origin[1], origin[2],
+                              device=resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class BC:
+    """Affine ghost boundary condition: ghost = a * owner + b.
+
+    `value`: field units for fixedValue/inletOutlet, field units per metre for
+    fixedGradient, the (a, b) pair itself for 'affine'."""
+    kind: str
+    value: Any = 0.0
+
+    def coeffs(self, h: float, side: int):
+        """(a, b) for ghost = a*owner + b; side: -1 low face, +1 high face."""
+        if self.kind == "fixedValue":
+            return -1.0, 2.0 * self.value
+        if self.kind in ("zeroGradient", "symmetry", "empty", "extrapolated"):
+            return 1.0, 0.0
+        if self.kind == "fixedGradient":
+            return 1.0, side * self.value * h
+        if self.kind == "symmetryNegate":   # normal velocity at a symmetry plane
+            return -1.0, 0.0
+        if self.kind == "inletOutlet":
+            return -1.0, 2.0 * self.value
+        if self.kind == "affine":
+            return self.value
+        raise ValueError(f"BC kind {self.kind} has no affine ghost")
+
+
+def fixed_value(v) -> BC:
+    return BC("fixedValue", v)
+
+
+def zero_gradient() -> BC:
+    return BC("zeroGradient")
+
+
+def cyclic() -> BC:
+    return BC("cyclic")
+
+
+def fixed_gradient(g) -> BC:
+    return BC("fixedGradient", g)
+
+
+def symmetry(negate: bool = False) -> BC:
+    return BC("symmetryNegate" if negate else "symmetry")
+
+
+def empty() -> BC:
+    return BC("empty")
+
+
+# FieldBCs: ((x_lo, x_hi), (y_lo, y_hi), (z_lo, z_hi))
+FieldBCs = tuple
+
+
+def _slab(f, axis: int, start: int, stop: int):
+    """f[..., start:stop along spatial axis `axis`, ...]."""
+    return f.narrow(axis - 3, start, stop - start)
+
+
+def pad_field(f, bcs: FieldBCs, mesh: StructuredMesh,
+              homogeneous: bool = False, bc_only: bool = False):
+    """Pad a (..., nx, ny, nz) cell field with one ghost layer per side.
+
+    homogeneous: ghost = a * owner (drop b)  — for implicit matvecs.
+    bc_only:     ghost = b, interior zeroed  — for source extraction.
+    default:     ghost = a * owner + b       — for explicit (fvc) operators.
+    """
+    out = torch.zeros_like(f) if bc_only else f
+    for axis in range(3):
+        lo, hi = bcs[axis]
+        d = axis - 3
+        n = out.shape[d]
+        if lo.kind == "processor" or hi.kind == "processor":
+            raise NotImplementedError("processor boundaries are multi-device")
+        if lo.kind == "cyclic" or hi.kind == "cyclic":
+            if lo.kind != hi.kind:
+                raise ValueError("cyclic BC must be paired on both sides")
+            if bc_only:
+                z = torch.zeros_like(_slab(out, axis, 0, 1))
+                out = torch.cat([z, out, z], dim=d)
+            else:
+                out = torch.cat([_slab(out, axis, n - 1, n), out,
+                                 _slab(out, axis, 0, 1)], dim=d)
+            continue
+        h = mesh.spacing[axis]
+        a_lo, b_lo = lo.coeffs(h, -1)
+        a_hi, b_hi = hi.coeffs(h, +1)
+        own_lo = _slab(out, axis, 0, 1)
+        own_hi = _slab(out, axis, n - 1, n)
+        if homogeneous:
+            g_lo, g_hi = a_lo * own_lo, a_hi * own_hi
+        elif bc_only:
+            g_lo = torch.zeros_like(own_lo) + b_lo
+            g_hi = torch.zeros_like(own_hi) + b_hi
+        else:
+            g_lo, g_hi = a_lo * own_lo + b_lo, a_hi * own_hi + b_hi
+        out = torch.cat([g_lo, out, g_hi], dim=d)
+    return out
+
+
+def extend_padded(P, axis: int, bcs: FieldBCs):
+    """Second ghost layer for wide (TVD, cubic) stencils.
+
+    P is a once-padded field (n+2 along axis). Returns (Pm, Pp), each n+3:
+    Pm prepends the far-low ghost, Pp appends the far-high ghost. Cyclic axes
+    wrap exactly; other BCs replicate the ghost."""
+    n = P.shape[axis - 3]
+    if bcs[axis][0].kind == "cyclic":
+        far_lo = _slab(P, axis, n - 3, n - 2)      # c_{n-2}
+        far_hi = _slab(P, axis, 2, 3)              # c_1
+    else:
+        far_lo = _slab(P, axis, 0, 1)
+        far_hi = _slab(P, axis, n - 1, n)
+    return (torch.cat([far_lo, P], dim=axis - 3),
+            torch.cat([P, far_hi], dim=axis - 3))

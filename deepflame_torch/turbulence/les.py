@@ -1,0 +1,122 @@
+"""LES subgrid-scale turbulence models: Smagorinsky, WALE and Sigma.
+
+Port of deepflame_tpu/turbulence/les.py (the structured-mesh models; the
+dynamic Smagorinsky model and the face-list variants are later slices). All
+models are local tensor algebra on the velocity gradient; the solver consumes
+mu_t through the effective coefficients mu + mu_t, alpha + mu_t/Pr_t and
+rhoD + mu_t/Sc_t. The Sigma model's singular values come from the analytic
+eigenvalues of the symmetric 3x3 field g^T g, evaluated elementwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..mesh.structured import StructuredMesh
+from ..ops.fv import grad
+
+__all__ = ["LESModel", "smagorinsky", "wale", "sigma_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LESModel:
+    """SGS model selector. kind: Smagorinsky | WALE | Sigma. Filter width:
+    cube-root cell volume."""
+    kind: str = "Smagorinsky"
+    Cs: float = 0.167
+    Cw: float = 0.325
+    Csigma: float = 1.5
+    Pr_t: float = 0.85
+    Sc_t: float = 0.7
+
+    def mu_t(self, rho, U, bcs_U, mesh: StructuredMesh):
+        delta = (mesh.dx * mesh.dy * mesh.dz) ** (1.0 / 3.0)
+        g = torch.stack([grad(U[c], bcs_U[c], mesh) for c in range(3)])
+        if self.kind == "Smagorinsky":
+            nut = _smag_nut(g, self.Cs, delta)
+        elif self.kind == "WALE":
+            nut = _wale_nut(g, self.Cw, delta)
+        elif self.kind == "Sigma":
+            nut = _sigma_nut(g, self.Csigma, delta)
+        else:
+            raise ValueError(self.kind)
+        return rho * nut
+
+
+def smagorinsky(**kw) -> LESModel:
+    return LESModel(kind="Smagorinsky", **kw)
+
+
+def wale(**kw) -> LESModel:
+    return LESModel(kind="WALE", **kw)
+
+
+def sigma_model(**kw) -> LESModel:
+    return LESModel(kind="Sigma", **kw)
+
+
+def _strain(g):
+    return 0.5 * (g + g.transpose(0, 1))
+
+
+def _smag_nut(g, Cs, delta):
+    S = _strain(g)
+    magS = torch.sqrt(2.0 * (S * S).sum((0, 1)))
+    return (Cs * delta) ** 2 * magS
+
+
+def _wale_nut(g, Cw, delta):
+    S = _strain(g)
+    g2 = torch.einsum("ik...,kj...->ij...", g, g)
+    tr = g2[0, 0] + g2[1, 1] + g2[2, 2]
+    eye = torch.eye(3, dtype=g.dtype, device=g.device).reshape(
+        3, 3, *([1] * (g.dim() - 2)))
+    Sd = 0.5 * (g2 + g2.transpose(0, 1)) - eye * tr / 3.0
+    SS = (S * S).sum((0, 1))
+    SdSd = (Sd * Sd).sum((0, 1))
+    return (Cw * delta) ** 2 * SdSd ** 1.5 / (SS ** 2.5 + SdSd ** 1.25 + 1e-30)
+
+
+def _sigma_nut(g, Csig, delta):
+    """Sigma model (Nicoud et al. 2011): D = s3 (s1 - s2)(s2 - s3) / s1^2,
+    s_i the singular values of grad U = sqrt(eigenvalues of g^T g)."""
+    def comp(i, j):
+        return g[0, i] * g[0, j] + g[1, i] * g[1, j] + g[2, i] * g[2, j]
+
+    l1, l2, l3 = _eig3_sym_comps(comp(0, 0), comp(1, 1), comp(2, 2),
+                                 comp(0, 1), comp(0, 2), comp(1, 2))
+    s1 = torch.sqrt(torch.clamp(l1, min=0.0))
+    s2 = torch.sqrt(torch.clamp(l2, min=0.0))
+    s3 = torch.sqrt(torch.clamp(l3, min=0.0))
+    D = s3 * (s1 - s2) * (s2 - s3) / torch.clamp(s1 * s1, min=1e-30)
+    return (Csig * delta) ** 2 * torch.clamp(D, min=0.0)
+
+
+def _eig3_sym(A):
+    """Analytic eigenvalues of a symmetric 3x3 field A (3, 3, ...),
+    descending."""
+    return _eig3_sym_comps(A[0, 0], A[1, 1], A[2, 2], A[0, 1], A[0, 2], A[1, 2])
+
+
+def _eig3_sym_comps(a00, a11, a22, a01, a02, a12):
+    """Eigenvalues from the 6 unique symmetric components (trigonometric
+    method, elementwise)."""
+    q = (a00 + a11 + a22) / 3.0
+    p1 = a01**2 + a02**2 + a12**2
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
+    # a floor representable in the dtype: A = q I gives p2 = 0
+    floor = 1e-60 if a00.dtype == torch.float64 else 1e-30
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=floor))
+    b00, b11, b22 = (a00 - q) / p, (a11 - q) / p, (a22 - q) / p
+    b01, b02, b12 = a01 / p, a02 / p, a12 / p
+    detB = (b00 * (b11 * b22 - b12 * b12)
+            - b01 * (b01 * b22 - b12 * b02)
+            + b02 * (b01 * b12 - b11 * b02))
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    e1 = q + 2.0 * p * torch.cos(phi)
+    e3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e2 = 3.0 * q - e1 - e3
+    return e1, e2, e3

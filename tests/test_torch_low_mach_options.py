@@ -1,0 +1,53 @@
+"""Solver options of the port's low-Mach step against the JAX package
+(float64, CPU): convection treatments, PIMPLE outer correctors, unity Lewis
+number with gravity. The 2D 9-species hot spot without chemistry, with a
+Taylor-Green velocity field so that convection matters; one step of 1 us.
+One step, because a second one tests the reference's own conditioning: the
+JAX step alone, given p perturbed by 1e-14, takes 7 more pressure-CG
+iterations in the second step with two outer correctors, and differs by
+1.3e-5 of the velocity with gravity. Tolerances and their reasons: see
+tests/test_torch_low_mach.py."""
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepflame_torch.cases import reacting_hot_spot_2d
+from test_torch_low_mach import run_both
+
+MECH = os.path.join(os.path.dirname(__file__), "data", "h2_air_9sp.json")
+
+
+@pytest.mark.parametrize("opts", [
+    dict(mv_convection="group-min"),
+    dict(mv_convection="upwind"),
+    dict(n_outer=2),
+    dict(unity_lewis=True, gravity=(0.0, -9.81, 0.0)),
+], ids=["group-min", "upwind", "n_outer2", "unity-lewis-gravity"])
+def test_low_mach_options_match_jax(opts):
+    from __graft_entry__ import _build
+    import deepflame_tpu.chemistry as jc
+
+    orig = jc.load_mechanism
+    jc.load_mechanism = lambda path, *a, **k: orig(MECH)
+    try:
+        solver_j, s0 = _build(n=8, dtype=jnp.float64, chemistry=False)
+    finally:
+        jc.load_mechanism = orig
+    solver_j = dataclasses.replace(
+        solver_j, config=dataclasses.replace(solver_j.config, **opts))
+    L = 2e-3
+    X, Yg, _ = solver_j.mesh.cell_centers()
+    k = 2 * np.pi / L
+    U = jnp.stack([2.0 * jnp.sin(k * X) * jnp.cos(k * Yg),
+                   -2.0 * jnp.cos(k * X) * jnp.sin(k * Yg), jnp.zeros_like(X)])
+    state_j = solver_j.initial_state(s0.p, s0.T, s0.Y, U)
+
+    solver_t, _ = reacting_hot_spot_2d(MECH, n=8, dtype=torch.float64,
+                                       chemistry=False, device="cpu")
+    solver_t = dataclasses.replace(
+        solver_t, config=dataclasses.replace(solver_t.config, **opts))
+    run_both(solver_j, state_j, solver_t, 1e-6, 1)

@@ -1,0 +1,79 @@
+"""Rules of the PyTorch port as a package: it imports neither JAX nor the JAX
+package, its entry points need the CUDA card unless the CPU is asked for, and
+its CPU path never counts a kernel launch."""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MECH = os.path.join(ROOT, "tests", "data", "h2_air_9sp.json")
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|deepflame_tpu)\b", re.M)
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "deepflame_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_sources_import_no_jax():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [f for f in files if _IMPORT.search(open(f).read())]
+    assert not bad, bad
+
+
+def test_port_modules_load_no_jax():
+    """Importing every module of the port (and the smoke script) leaves JAX
+    and the JAX package unloaded."""
+    code = (
+        "import sys, runpy\n"
+        "import deepflame_torch.cases, deepflame_torch.convert\n"
+        "import deepflame_torch.solvers.low_mach, deepflame_torch.ops.kernels\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('deepflame_tpu')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_need_a_card_or_the_cpu():
+    """Without a CUDA card, entry points raise unless device='cpu' is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from deepflame_torch.chemistry import load_mechanism, make_thermo
+    from deepflame_torch.convert import mechanism_from_numpy
+    from deepflame_torch.mesh import StructuredMesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_mechanism(MECH)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StructuredMesh.box([1.0, 1.0, 1.0], [4, 4, 4])
+    mech = load_mechanism(MECH, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mechanism_from_numpy({k: getattr(mech, k) for k in
+                              ("name", "species_names", "element_names")
+                              + tuple(mech.__dataclass_fields__)
+                              if k != "device"})
+    # tables follow the device their mechanism was loaded for
+    assert make_thermo(mech).W.device.type == "cpu"
+
+
+def test_cpu_step_counts_no_launch():
+    """A step on the CPU runs the plain versions: no kernel launch counted."""
+    from deepflame_torch.cases import reacting_tgv_3d_les
+    from deepflame_torch.ops import kernels as K
+    K.reset_launches()
+    solver, state = reacting_tgv_3d_les(MECH, n=4, dtype=torch.float64,
+                                        device="cpu")
+    state, diag = solver.step(state, 2.5e-7)
+    assert all(v == 0 for v in K.launches.values())
+    assert torch.isfinite(state.T).all()
+    assert np.isfinite(float(diag["continuity_err"]))
