@@ -1,10 +1,12 @@
 """Case builders of the port: the reacting Taylor-Green configurations that
-`__graft_entry__._build` and `_build_3d_les` build for the JAX package.
+`__graft_entry__._build` and `_build_3d_les` build for the JAX package, and
+the DNN-chemistry variant of the 3D one that `tools/bench_dnn.py` builds.
 
 Each returns (solver, state) on `device` (default: the CUDA card).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -12,12 +14,14 @@ import torch
 
 from .chemistry import load_mechanism, make_kinetics, make_thermo, make_transport
 from .chemistry.integrator import RosenbrockOptions
-from .combustion import Laminar
+from .chemistry.dnn import LAYERS, DFODENet, init_params
+from .combustion import DNNChemistry, Laminar
 from .mesh import StructuredMesh, cyclic, empty
 from .solvers import LowMachConfig, LowMachSolver
 from .turbulence import sigma_model
 
-__all__ = ["reacting_tgv_3d_les", "reacting_hot_spot_2d"]
+__all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
+           "reacting_hot_spot_2d"]
 
 
 def _fresh_mixture(mech):
@@ -64,6 +68,34 @@ def reacting_tgv_3d_les(mech_path: str, n: int = 48, dtype=torch.float32,
     Y = torch.as_tensor(_fresh_mixture(mech), dtype=dtype, device=mesh.device)
     Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
     return solver, solver.initial_state(p, T, Y.contiguous(), U)
+
+
+def reacting_tgv_3d_les_dnn(mech_path: str, n: int = 48, dtype=torch.float32,
+                            compute_dtype=torch.bfloat16, y_std: float = 1e-6,
+                            seed: int = 0, hidden=LAYERS, device=None):
+    """`reacting_tgv_3d_les` with the stiff chemistry replaced by DF-ODENet
+    DNN chemistry: per-species GELU MLPs [ns+2, *hidden, 1] with random
+    weights from `torch.Generator().manual_seed(seed)`, identity input
+    normalization, target scale `y_std`, a trained step of 2.5e-7 s (the
+    case's dt) and frozen temperature 700 K (only the hot sphere reacts). The default y_std keeps
+    the random nets' rates non-zero and the step physical: with 1e-3 the
+    hot cells' composition jumps so far in one step that T falls to the
+    200 K floor of T_from_h; 1e-12 (tools/bench_dnn.py) makes RR vanish."""
+    solver, state = reacting_tgv_3d_les(mech_path, n=n, dtype=dtype,
+                                        device=device)
+    ns = state.Y.shape[0]
+    dev = solver.device
+    net = DFODENet(
+        nets=init_params(torch.Generator().manual_seed(seed), ns, hidden,
+                         dtype=dtype, device=dev),
+        x_mean=torch.zeros(ns + 2, dtype=dtype, device=dev),
+        x_std=torch.ones(ns + 2, dtype=dtype, device=dev),
+        y_mean=torch.zeros(ns - 1, dtype=dtype, device=dev),
+        y_std=torch.full((ns - 1,), y_std, dtype=dtype, device=dev),
+        delta_t=2.5e-7, frozen_T=700.0, compute_dtype=compute_dtype)
+    comb = DNNChemistry(solver.combustion.thermo, solver.combustion.kinetics,
+                        net=net)
+    return dataclasses.replace(solver, combustion=comb), state
 
 
 def reacting_hot_spot_2d(mech_path: str, n: int = 32, dtype=torch.float32,

@@ -1,20 +1,22 @@
-"""Carry a mechanism or a solver state into the port from plain numpy data.
+"""Carry a mechanism, a solver state or DF-ODENet parameters into the port
+from plain numpy data.
 
-Both functions take dictionaries of numpy arrays (for example the fields of
-the JAX package's `Mechanism` or `LowMachState`, each passed through
-`numpy.asarray`), so the tests can start both packages from one state
-without this package importing the other.
+The functions take numpy arrays (for example the fields of the JAX
+package's `Mechanism` or `LowMachState`, or its DF-ODENet parameters, each
+passed through `numpy.asarray`), so the tests can start both packages from
+one state without this package importing the other.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .chemistry.dnn import DFODENet
 from .chemistry.mechanism import MECHANISM_ARRAYS, Mechanism
 from .device import resolve_device
 from .solvers.low_mach import LowMachState
 
-__all__ = ["mechanism_from_numpy", "state_from_numpy"]
+__all__ = ["mechanism_from_numpy", "state_from_numpy", "dfodenet_from_numpy"]
 
 
 def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
@@ -41,3 +43,16 @@ def state_from_numpy(d: dict, dtype=torch.float64, device=None) -> LowMachState:
         rho=f(d["rho"]), U=f(d["U"]), p=f(d["p"]), ha=f(d["ha"]), Y=f(d["Y"]),
         T=f(d["T"]), phi=tuple(f(x) for x in d["phi"]), dpdt=f(d["dpdt"]),
         time=f(d["time"]), chem_dt=None if chem_dt is None else f(chem_dt))
+
+
+def dfodenet_from_numpy(nets, x_mean, x_std, y_mean, y_std, delta_t: float,
+                        frozen_T: float = 700.0, compute_dtype=None,
+                        dtype=torch.float64, device=None) -> DFODENet:
+    """DFODENet from numpy parameters: nets = [[(W (in, out), b (out,)),
+    ...] per species], as the JAX package's `init_params` lays them out."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return DFODENet(nets=[[(f(W), f(b)) for W, b in net] for net in nets],
+                    x_mean=f(x_mean), x_std=f(x_std), y_mean=f(y_mean),
+                    y_std=f(y_std), delta_t=delta_t, frozen_T=frozen_T,
+                    compute_dtype=compute_dtype)

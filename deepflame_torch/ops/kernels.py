@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the solver path, their plain versions, and
 their build.
 
-Three CUDA C++ kernels (sources in `deepflame_torch/csrc/`) replace the three
+Four CUDA C++ kernels (sources in `deepflame_torch/csrc/`) replace the four
 Pallas TPU kernels that the low-Mach step runs:
 
 =====================  =====================================================
@@ -13,6 +13,8 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
                        pressure-CG matvec
 `gj_inverse`           `gj_inverse_lanes`: Rosenbrock W inverse of the stiff
                        chemistry
+`mlp_fused`            `mlp_fused_lanes`: the DF-ODENet MLPs of the DNN
+                       chemistry (bf16 tensor cores, or f32/f64 FMA)
 =====================  =====================================================
 
 Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
@@ -37,10 +39,12 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F_nn
 
-__all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse",
+__all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse", "mlp_fused",
            "stencil_apply_plain", "helmholtz_apply_plain", "gj_inverse_plain",
-           "launches", "reset_launches", "build", "find_nvcc", "BUILD_DIR"]
+           "mlp_fused_plain", "launches", "reset_launches", "build",
+           "find_nvcc", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,7 +57,9 @@ _KERNELS = {
     "stencil7_apply": ("stencil7.cu", [_P] * 9 + [_L, _I, _I, _I, _P]),
     "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
     "gj_inverse": ("gj_inverse.cu", [_P, _P, _I, _L, _P]),
+    "mlp_fused": ("mlp_fused.cu", [_P] * 10 + [_I] * 7 + [_P]),
 }
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 launches = {name: 0 for name in _KERNELS}
 
@@ -120,23 +126,26 @@ def _function(name: str, dtype: torch.dtype):
             if not _so_path(name).exists():
                 build()
             lib = _libs[name] = ctypes.CDLL(str(_so_path(name)))
-    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
     fn.argtypes = _KERNELS[name][1]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name: str, tensors) -> None:
+def _check(name: str, tensors, dtypes=None) -> None:
+    """All operands on one CUDA device and contiguous; each of the type in
+    `dtypes`, or all of the first operand's type, float32 or float64."""
     ref = tensors[0]
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA tensors, got {ref.device}")
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: takes float32 or float64, got {ref.dtype}")
-    for t in tensors:
-        if t.device != ref.device or t.dtype != ref.dtype:
-            raise ValueError(f"{name}: all operands must share device and "
-                             f"dtype ({t.device}/{t.dtype} vs "
-                             f"{ref.device}/{ref.dtype})")
+    if dtypes is None:
+        if ref.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{name}: takes float32 or float64, got {ref.dtype}")
+        dtypes = [ref.dtype] * len(tensors)
+    for t, dt in zip(tensors, dtypes, strict=True):
+        if t.device != ref.device or t.dtype != dt:
+            raise ValueError(f"{name}: operand on {t.device}/{t.dtype}, "
+                             f"expected {ref.device}/{dt}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
 
@@ -278,4 +287,92 @@ def gj_inverse(W_t):
     out = torch.empty_like(W_t)
     _launch("gj_inverse", W_t.dtype, W_t.device, W_t.data_ptr(),
             out.data_ptr(), n, L)
+    return out
+
+
+# ------------------------------------------------------- fused DF-ODENet MLP
+
+# lanes per block of each mode (csrc/mlp_fused.cu), keyed by the weights' type
+_MLP_LANES = {torch.bfloat16: 32, torch.float32: 16, torch.float64: 8}
+_SMEM_LIMIT = 232_448            # bytes of shared memory a block may use, sm_90
+
+
+def _mlp_smem(wdt, F, K1, H1, H2, H3) -> int:
+    """Shared-memory bytes of one block (csrc/mlp_fused.cu)."""
+    lanes = _MLP_LANES[wdt]
+    if wdt == torch.bfloat16:
+        return lanes * (max(H1, H3) + max(H2, K1) + 16) * 2 + 8 * 256 * 4
+    return lanes * (max(H1, H3) + max(H2, F)) * wdt.itemsize
+
+
+def mlp_fused_plain(x, Ws, bs, chunk: int | None = None):
+    """Plain version: x (B, F) through S stacked nets -> (B, S).
+
+    Ws[0] (S, K1, H1) may carry zero rows past F (K padding); they are not
+    used. With bf16 weights it rounds where the kernel does: x and W to bf16,
+    products summed in f32, bias and GELU in f32, each hidden activation
+    rounded to bf16; x and the result are f32. Otherwise everything is in x's
+    type. `chunk` lanes go through at a time, bounding the (S, chunk, H1)
+    activations."""
+    B, F = x.shape
+    if chunk is not None and B > chunk:
+        return torch.cat([mlp_fused_plain(x[i:i + chunk], Ws, bs)
+                          for i in range(0, B, chunk)])
+    bf16 = Ws[0].dtype == torch.bfloat16
+    cd = torch.float32 if bf16 else x.dtype
+    h = x.to(torch.bfloat16).to(cd) if bf16 else x
+    for i, (W, b) in enumerate(zip(Ws, bs)):
+        W = W[:, :F] if i == 0 else W
+        h = torch.matmul(h, W.to(cd)) + b.to(cd)[:, None, :]
+        if i < len(Ws) - 1:
+            h = F_nn.gelu(h)
+            if bf16:
+                h = h.to(torch.bfloat16).to(cd)
+    return h[..., 0].transpose(0, 1).contiguous()
+
+
+def mlp_fused(x, Ws, bs, chunk: int | None = None):
+    """S stacked four-layer GELU MLPs F -> H1 -> H2 -> H3 -> 1, all in one
+    launch with the hidden activations on chip: x (B, F) -> (B, S).
+
+    Ws: [(S, K1, H1), (S, H1, H2), (S, H2, H3), (S, H3, 1)], K1 >= F (rows
+    past F are zero padding); bs: [(S, H1), (S, H2), (S, H3), (S, 1)]. The
+    weights' type picks the mode: bfloat16 (tensor cores; x and biases
+    float32, K1 and the hidden widths multiples of 16), float32 or float64
+    (x, biases and weights all of that type). `chunk` only bounds the plain
+    version's activations on the CPU."""
+    if x.device.type == "cpu":
+        return mlp_fused_plain(x, Ws, bs, chunk)
+    wdt = Ws[0].dtype
+    if wdt not in _MLP_LANES:
+        raise TypeError(f"mlp_fused: weights must be bfloat16, float32 or "
+                        f"float64, got {wdt}")
+    xdt = torch.float32 if wdt == torch.bfloat16 else wdt
+    if len(Ws) != 4 or len(bs) != 4:
+        raise ValueError("mlp_fused: takes exactly four layers")
+    ops = [x] + [t for Wb in zip(Ws, bs) for t in Wb]
+    _check("mlp_fused", ops, [xdt] + [wdt, xdt] * 4)
+    if x.dim() != 2 or any(W.dim() != 3 for W in Ws):
+        raise ValueError("mlp_fused: x must be (B, F) and each W (S, in, out)")
+    B, F = x.shape
+    S, K1, H1 = Ws[0].shape
+    H2, H3 = Ws[1].shape[2], Ws[2].shape[2]
+    want = [(S, K1, H1), (S, H1, H2), (S, H2, H3), (S, H3, 1)]
+    if [tuple(W.shape) for W in Ws] != want or K1 < F or any(
+            tuple(b.shape) != (S, W.shape[2]) for W, b in zip(Ws, bs)):
+        raise ValueError(f"mlp_fused: shapes x {tuple(x.shape)}, W "
+                         f"{[tuple(W.shape) for W in Ws]}, b "
+                         f"{[tuple(b.shape) for b in bs]} do not chain")
+    if wdt == torch.bfloat16 and any(d % 16 for d in (K1, H1, H2, H3)):
+        raise ValueError(f"mlp_fused: bf16 needs K1 and the hidden widths in "
+                         f"multiples of 16, got {(K1, H1, H2, H3)}")
+    smem = _mlp_smem(wdt, F, K1, H1, H2, H3)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"mlp_fused: widths {(F, H1, H2, H3)} need {smem} "
+                         f"bytes of shared memory in {wdt}, over {_SMEM_LIMIT}")
+    out = torch.empty((B, S), dtype=xdt, device=x.device)
+    if B == 0:
+        return out
+    _launch("mlp_fused", wdt, x.device, *[t.data_ptr() for t in ops],
+            out.data_ptr(), B, F, K1, H1, H2, H3, S)
     return out

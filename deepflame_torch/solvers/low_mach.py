@@ -93,6 +93,7 @@ class LowMachConfig:
     max_iter_p: int = 500
     unity_lewis: bool = False
     chemistry: bool = True
+    chemistry_dt_scale: float = 1.0    # 2.0 for splittingStrategy chem steps
     inert_index: int | None = None     # species closed as 1 - sum(others)
     gravity: tuple = (0.0, 0.0, 0.0)
 
@@ -207,9 +208,12 @@ class LowMachSolver:
         # ===== chemistry (operator split, once per step)
         if cfg.chemistry:
             chem = self.combustion.correct(
-                T, p, torch.movedim(Y, 0, -1), dt, dt_start=s.chem_dt)
+                T, p, torch.movedim(Y, 0, -1), dt * cfg.chemistry_dt_scale,
+                dt_start=s.chem_dt)
             chem_dt_new = chem.dt_next if chem.dt_next is not None else s.chem_dt
-            RR = torch.movedim(chem.RR, -1, 0)
+            # splittingStrategy: the scaled-dt fractional chemistry step
+            # applies its full change within this transport step
+            RR = torch.movedim(chem.RR, -1, 0) * cfg.chemistry_dt_scale
             diag["Qdot_max"] = gmax(chem.Qdot)
         else:
             RR = torch.zeros_like(Y)

@@ -175,3 +175,48 @@ def test_cuda_gj_matches_plain(cuda, dtype):
     with pytest.raises(ValueError):
         K.gj_inverse(torch.zeros((too_big, too_big, 4), device=cuda,
                                  dtype=dtype))
+
+
+def _mlp_operands(device, wdt, S=8, F=11, hidden=(1600, 800, 400), B=3000,
+                  seed=3):
+    """Seeded operands of mlp_fused at the DNN path's widths: He-scaled
+    weights (first layer padded with zero rows to 16), small biases, x of
+    unit scale; B not a multiple of any block."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xdt = torch.float32 if wdt == torch.bfloat16 else wdt
+    sizes = (F,) + tuple(hidden) + (1,)
+    Ws, bs = [], []
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        W = torch.randn((S, a, b), generator=g, device=device,
+                        dtype=torch.float64) * (2.0 / a) ** 0.5
+        if i == 0:
+            W = torch.nn.functional.pad(W, (0, 0, 0, (-a) % 16))
+        Ws.append(W.to(wdt).contiguous())
+        bs.append((0.1 * torch.randn((S, b), generator=g, device=device,
+                                     dtype=torch.float64)).to(xdt))
+    x = torch.randn((B, F), generator=g, device=device, dtype=torch.float64)
+    return x.to(xdt), Ws, bs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt,tol", [(torch.bfloat16, 2e-3),
+                                     (torch.float32, 1e-5),
+                                     (torch.float64, 1e-12)])
+def test_cuda_mlp_fused_matches_plain(cuda, wdt, tol):
+    """The fused MLP kernel at full widths against its plain version on the
+    card, relative to the largest |out|: bf16 2e-3 (a sum in another order
+    can move one bf16 rounding of an activation), f32 1e-5, f64 1e-12."""
+    x, Ws, bs = _mlp_operands(cuda, wdt)
+    before = K.launches["mlp_fused"]
+    out = K.mlp_fused(x, Ws, bs)
+    torch.cuda.synchronize()
+    assert K.launches["mlp_fused"] == before + 1
+    ref = K.mlp_fused_plain(x, Ws, bs)
+    assert out.shape == (3000, 8) and out.dtype == ref.dtype
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    with pytest.raises(ValueError):
+        K.mlp_fused(x, Ws[:3], bs[:3])               # not four layers
+    with pytest.raises(ValueError):
+        K.mlp_fused(x.double() if wdt != torch.float64 else x.float(), Ws, bs)
+    with pytest.raises(ValueError):                  # too wide for one block
+        K.mlp_fused(*_mlp_operands(cuda, wdt, hidden=(4096, 1024, 16), B=4))

@@ -58,8 +58,10 @@ def _rel(a, b):
     return np.abs(a - b.numpy()).max() / max(np.abs(a).max(), 1e-300)
 
 
-def run_both(solver_j, state_j, solver_t, dt, n_steps):
-    """Step both packages from the JAX state; assert parity after each step."""
+def run_both(solver_j, state_j, solver_t, dt, n_steps, iters_p_slack=0):
+    """Step both packages from the JAX state; assert parity after each step.
+    Krylov iteration counts must be equal, the pressure count within
+    `iters_p_slack`."""
     state_t = _to_port(state_j)
     step = jax.jit(lambda s: solver_j.step(s, dt))
     for _ in range(n_steps):
@@ -67,7 +69,9 @@ def run_both(solver_j, state_j, solver_t, dt, n_steps):
         state_t, dt_ = solver_t.step(state_t, dt)
         for k in ("iters_U", "iters_Y", "iters_h", "iters_p"):
             if k in dj:
-                assert int(dj[k]) == int(dt_[k]), (k, dj[k], dt_[k])
+                slack = iters_p_slack if k == "iters_p" else 0
+                assert abs(int(dj[k]) - int(dt_[k])) <= slack, \
+                    (k, dj[k], dt_[k])
         for k in FIELDS:
             tol = RTOL_FLOW if k == "U" else 1e-8
             assert _rel(getattr(state_j, k), getattr(state_t, k)) <= tol, k

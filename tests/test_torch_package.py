@@ -25,6 +25,7 @@ def _port_files():
 def test_port_sources_import_no_jax():
     files = _port_files()
     assert len(files) > 15
+    assert any(os.sep + "runtime" + os.sep in f for f in files)
     bad = [f for f in files if _IMPORT.search(open(f).read())]
     assert not bad, bad
 
@@ -36,6 +37,8 @@ def test_port_modules_load_no_jax():
         "import sys, runpy\n"
         "import deepflame_torch.cases, deepflame_torch.convert\n"
         "import deepflame_torch.solvers.low_mach, deepflame_torch.ops.kernels\n"
+        "import deepflame_torch.chemistry.dnn, deepflame_torch.combustion\n"
+        "import deepflame_torch.runtime.factory, deepflame_torch.runtime.driver\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('deepflame_tpu')]\n"
@@ -77,3 +80,17 @@ def test_cpu_step_counts_no_launch():
     assert all(v == 0 for v in K.launches.values())
     assert torch.isfinite(state.T).all()
     assert np.isfinite(float(diag["continuity_err"]))
+
+
+def test_cpu_dnn_step_counts_no_launch():
+    """The DNN step on the CPU runs mlp_fused's plain version: no kernel
+    launch counted, and the fused route was taken."""
+    from deepflame_torch.cases import reacting_tgv_3d_les_dnn
+    from deepflame_torch.ops import kernels as K
+    solver, state = reacting_tgv_3d_les_dnn(MECH, n=4, dtype=torch.float32,
+                                            hidden=(32, 16, 16), device="cpu")
+    K.reset_launches()
+    state, _ = solver.step(state, 2.5e-7)
+    assert all(v == 0 for v in K.launches.values())
+    assert solver.combustion.net.fused
+    assert torch.isfinite(state.T).all()
