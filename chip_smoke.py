@@ -15,16 +15,20 @@ toolkit (nvcc). In order:
    call with CUDA events; the fused MLP in bf16, f32 and f64;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
-   the stiff-chemistry case and the DNN-chemistry case;
-4. drives the two main paths at 96^3 in float32 on the 9-species test
-   mechanism, one warm-up step and two timed steps each, with the launch
-   counts set to 0 just before the timed steps and read just after:
-   - the stiff path, the 3D reacting LES Taylor-Green step
+   the stiff-chemistry case, the DNN-chemistry case and the face-list jet;
+4. drives the three main paths in float32 on the 9-species test mechanism,
+   warm-up steps and then two timed steps each, with the launch counts set
+   to 0 just before the timed steps and read just after:
+   - the stiff path at 96^3, the 3D reacting LES Taylor-Green step
      (deepflame_torch.cases.reacting_tgv_3d_les); the stencil, Helmholtz
      and Gauss-Jordan kernels must launch;
-   - the DNN path, the same step with DF-ODENet chemistry in bf16
+   - the DNN path at 96^3, the same step with DF-ODENet chemistry in bf16
      (deepflame_torch.cases.reacting_tgv_3d_les_dnn); the stencil and
      Helmholtz kernels must launch, and the fused MLP once per step;
+   - the face-list path, the 3D LES jet flame on a 128 x 64 x 64 blockMesh
+     mesh (deepflame_torch.cases.jet_flame_3d_les_fl, dt 5e-7 s, two
+     warm-up steps as bench.py takes); the ELL SpMV and Gauss-Jordan
+     kernels must launch;
 5. runs the DNN case through the case runtime at 32^3 (a CaseConfig, the
    solver factory with an npz checkpoint of seeded weights, run_case with
    splittingStrategy, one checkpoint, then a restart from it);
@@ -53,6 +57,7 @@ PALLAS = "deepflame_tpu/ops/pallas_kernels.py"
 N_MAIN, STEPS = 96, 2          # main paths: cells per side, timed steps
 N_RUNTIME = 32                 # runtime phase: cells per side
 DT = 2.5e-7                    # step of the TGV cases [s]
+N_JET, JET_DT = 64, 5e-7       # face-list jet: (2n, n, n) cells; its step [s]
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
@@ -69,7 +74,7 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 
 def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
-              kernel: str | None = None) -> float:
+              kernel: str | None = None, attempts: int = 3) -> float:
     """Device time per call of fn(*args): the summed durations of the device
     operations that `reps` calls launch, as torch.profiler records them
     (host dispatch and the gaps between operations are not counted). The
@@ -77,25 +82,35 @@ def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
     each call reads cold inputs. With `kernel` given, every device operation
     recorded must be that kernel, and the time is the mean over the launches
     recorded (the profiler has been seen to drop one record of twenty long
-    launches)."""
+    launches). A profiled window that records no device operation, or the
+    wrong kernel count, is profiled again, up to `attempts` windows in all:
+    the profiler has been seen to return a window with no device record."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warm):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = (len(dev) if kernel is None
+                 else sum(kernel in e.name for e in dev))
+        ok = bool(dev) and (kernel is None or (
+            named == len(dev) and reps - 1 <= named <= reps))
+        if ok:
+            break
+        print(f"profiled window {attempt + 1} of {attempts}: {len(dev)} "
+              f"device operations ({named} named {kernel}) for {reps} calls")
     check(dev, "the profiler recorded no device operation")
-    if kernel is not None:
-        named = sum(kernel in e.name for e in dev)
-        check(named == len(dev) and reps - 1 <= named <= reps,
-              f"{kernel}: {named} of {len(dev)} device operations for {reps} calls")
-        reps = named
-    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    check(ok, f"{kernel}: {named} of {len(dev)} device operations for {reps} "
+              f"calls")
+    return sum(e.time_range.elapsed_us() for e in dev) / (
+        named if kernel is not None else reps) / 1e3
 
 
 def call_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3) -> float:
@@ -145,8 +160,9 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def phase_kernels(torch, K) -> dict:
-    """Each kernel against its plain version at main-path shapes."""
+def phase_kernels(torch, K, jet_conn) -> dict:
+    """Each kernel against its plain version at main-path shapes; jet_conn:
+    the face-list jet's ELL connectivity (its solver's p_ell)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -240,6 +256,7 @@ def phase_kernels(torch, K) -> dict:
             print("gj_inverse f64 figures (bound: bytes only): "
                   + json.dumps(figures))
     out["mlp_fused"] = _mlp_figures(torch, K, g)
+    out["ell_matvec"] = _ell_figures(torch, K, g, jet_conn)
     for name, f in out.items():
         print(f"{name}: kernel {f['ms']:.4f} ms on the device "
               f"({f['call_ms']:.4f} ms per wrapper call back to back), "
@@ -337,31 +354,100 @@ def _mlp_figures(torch, K, g) -> dict:
     return rows["bf16"]
 
 
+def _ell_csr(torch, diag, nbr, coef, side):
+    """The same matrix as a CSR tensor (diagonal plus the non-pad slots,
+    columns sorted in each row), for the cuSPARSE yardstick."""
+    n = diag.shape[0]
+    rows = torch.arange(n, device=diag.device, dtype=torch.int64)[:, None]
+    cols = torch.cat([rows, nbr.long()], 1)
+    vals = torch.cat([diag[:, None], coef], 1)
+    keep = torch.cat([torch.ones_like(side[:, :1], dtype=torch.bool),
+                      side != 0], 1)
+    cols, order = torch.where(keep, cols, n).sort(1)
+    vals = torch.gather(vals, 1, order)
+    keep = cols < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=diag.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    return torch.sparse_csr_tensor(crow, cols[keep], vals[keep], (n, n))
+
+
+def _ell_figures(torch, K, g, conn) -> dict:
+    """ell_matvec against its plain version on the jet's own ELL
+    connectivity (128 x 64 x 64 cells, w = 6, pads at the row with
+    coefficient 0) with seeded random diag, coef and x, in float32 (the main
+    path's type) and float64. Tolerance: 1e-6 (f32) and 1e-14 (f64) of the
+    largest |out|, the order of a six-term sum. Library time: cuSPARSE SpMV
+    (A_csr @ x) on the same matrix as a CSR tensor built outside the timed
+    call. Bound: bytes (x, diag, nbr, coef and out once) over the memory
+    rate; 2(w + 1) operations per row do not bind."""
+    _, side, nbr = conn
+    n, w = nbr.shape
+    tol = {torch.float32: 1e-6, torch.float64: 1e-14}
+    rows = {}
+    for dt in (torch.float32, torch.float64):
+        sets, lib_sets = [], []
+        for _ in range(4):              # > 50 MB of operands: cold reads
+            coef = torch.where(side != 0, torch.randn(
+                (n, w), generator=g, device="cuda", dtype=dt), 0.0)
+            diag = torch.rand(n, generator=g, device="cuda", dtype=dt) + 6.0
+            x = torch.randn(n, generator=g, device="cuda", dtype=dt)
+            sets.append((x, diag, nbr.clone(), coef))
+            lib_sets.append((_ell_csr(torch, diag, nbr, coef, side), x))
+        err, rel = max_rel_err(torch, K.ell_matvec(*sets[0]),
+                               K.ell_matvec_plain(*sets[0]))
+        name = "f32" if dt == torch.float32 else "f64"
+        print(f"ell_matvec n={n} w={w} {name}: max abs err {err:.3e}, rel "
+              f"{rel:.3e} (tolerance {tol[dt]:g} of the largest |out|)")
+        check(rel <= tol[dt], f"ell_matvec {name} disagrees with its plain "
+                              f"version")
+        size = dt.itemsize
+        n_bytes = (3 * size + w * 4 + w * size) * n
+        # float64 is bounded here by its bytes alone (no float64 peak used)
+        b_ms, b_by = bound_ms(n_bytes, 2 * (w + 1) * n
+                              if dt == torch.float32 else 0.0)
+        rows[name] = dict(
+            route="cuda", source="deepflame_torch/csrc/ell_matvec.cu",
+            replaces=f"{PALLAS}:114 (ell_matvec)", max_abs_err=err,
+            **timings(torch, K.ell_matvec, "ell_matvec_kernel",
+                      K.ell_matvec_plain, sets,
+                      library_fn=lambda A, x_: A @ x_, library_sets=lib_sets),
+            bound_ms=b_ms, bound_by=b_by, shape=[n, w], dtype=name)
+    print("ell_matvec f64 figures (bound: bytes only): "
+          + json.dumps(rows["f64"]))
+    return rows["f32"]
+
+
 # kernels each path must launch during its timed steps
 PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
-                "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused")}
+                "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused"),
+                "fl": ("ell_matvec", "gj_inverse")}
+STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT}
 
 
 def _build_case(path: str, n: int, dtype, device=None, **kw):
-    from deepflame_torch.cases import (reacting_tgv_3d_les,
+    from deepflame_torch.cases import (jet_flame_3d_les_fl, reacting_tgv_3d_les,
                                        reacting_tgv_3d_les_dnn)
     if path == "stiff":
         return reacting_tgv_3d_les(MECH, n=n, dtype=dtype, device=device, **kw)
+    if path == "fl":
+        return jet_flame_3d_les_fl(MECH, n=n, dtype=dtype, device=device, **kw)
     return reacting_tgv_3d_les_dnn(MECH, n=n, dtype=dtype, device=device, **kw)
 
 
 def phase_reference(torch, K) -> None:
     """Two float64 steps of each n = 8 case on the card (kernels) against
     the port's CPU path (plain versions). The DNN case computes its MLP in
-    float64 (the f64 kernel) with the same seeded weights on both sides."""
-    for path, kw in (("stiff", {}), ("dnn", {"compute_dtype": None})):
+    float64 (the f64 kernel) with the same seeded weights on both sides; the
+    face-list jet is 16 x 8 x 8 cells."""
+    for path, kw in (("stiff", {}), ("dnn", {"compute_dtype": None}),
+                     ("fl", {})):
         before = dict(K.launches)
         results = {}
         for dev in ("cuda", "cpu"):
             solver, state = _build_case(path, 8, torch.float64, device=dev,
                                         **kw)
             for _ in range(2):
-                state, _ = solver.step(state, DT)
+                state, _ = solver.step(state, STEP_DT[path])
             results[dev] = state
         check(all(K.launches[k] > before[k] for k in PATH_KERNELS[path]),
               f"{path} reference step on the card did not launch "
@@ -380,38 +466,81 @@ def phase_reference(torch, K) -> None:
               f"largest value")
 
 
+def build_jet(torch, n: int):
+    """The face-list jet at (2n, n, n) in float32: blockMesh, then the
+    solver, each timed."""
+    from deepflame_torch.cases import jet_blockmesh_dict
+    from deepflame_torch.mesh import build_blockmesh, parse_blockmesh_dict
+    t0 = time.perf_counter()
+    gm = build_blockmesh(parse_blockmesh_dict(jet_blockmesh_dict(n)))
+    t1 = time.perf_counter()
+    print(f"fl path: blockMesh of the jet, {gm.n_cells} cells and "
+          f"{gm.owner.shape[0]} interior faces, built on the host in "
+          f"{t1 - t0:.2f} s")
+    solver, state = _build_case("fl", n, torch.float32, mesh=gm)
+    torch.cuda.synchronize()
+    print(f"fl path: jet solver and initial state built in "
+          f"{time.perf_counter() - t1:.2f} s ({solver.combustion.n_bins} "
+          f"chemistry bins, {len(solver.m_Y_groups)} species BC groups, "
+          f"dt {JET_DT:g} s)")
+    return solver, state
+
+
+def _check_fl(torch, solver, state, n_cells) -> None:
+    """Jet state: shapes, rows of Y summing to 1, inlet and outlet mass
+    fluxes finite and of opposite sign."""
+    check(state.T.shape == (n_cells,) and state.Y.shape == (n_cells, 9),
+          "fl: state shapes")
+    check(float((state.Y.sum(1) - 1.0).abs().max()) < 1e-5,
+          "fl: mass fractions do not sum to 1")
+    flux = {p.name: float((fb * p.mag_sf).sum())
+            for p, fb in zip(solver.mesh.patches, state.phi_b)}
+    print(f"fl boundary mass fluxes [kg/s]: {json.dumps(flux)}")
+    check(all(math.isfinite(v) for v in flux.values()),
+          "fl: non-finite boundary flux")
+    check(flux["inlet"] < 0.0 < flux["outlet"],
+          "fl: inlet and outlet mass fluxes are not of opposite sign")
+
+
 def phase_main(torch, K, path: str, n: int, steps: int,
-               profile: str | None) -> dict:
-    """One warm-up step and `steps` timed steps of a main path at n^3 in
-    float32; returns the launch counts of the timed steps."""
-    t0 = time.perf_counter()
-    solver, state = _build_case(path, n, torch.float32)
-    torch.cuda.synchronize()
-    comb = solver.combustion
-    what = (f"{comb.n_bins} chemistry bins, sort '{comb.sort}'"
-            if path == "stiff" else
-            f"DF-ODENet {len(comb.net.nets)} nets "
-            f"{[comb.net.nets[0][0][0].shape[0]] + [W.shape[1] for W, _ in comb.net.nets[0]]}"
-            f" in {comb.net.compute_dtype}, y_std {float(comb.net.y_std[0]):g}")
-    print(f"{path} path: {n}^3 float32 reacting LES TGV built in "
-          f"{time.perf_counter() - t0:.2f} s ({what}, dt {DT:g} s)")
-    t0 = time.perf_counter()
-    state, diag = solver.step(state, DT)                     # warm-up
-    torch.cuda.synchronize()
-    print(f"{path} warm-up step: {time.perf_counter() - t0:.3f} s")
+               profile: str | None, built=None) -> dict:
+    """Warm-up steps (two on the jet, as bench.py takes, one on the TGV)
+    and `steps` timed steps of a main path in float32; returns the launch
+    counts of the timed steps. `built`: (solver, state) built already."""
+    dt = STEP_DT[path]
+    if built is None:
+        t0 = time.perf_counter()
+        solver, state = _build_case(path, n, torch.float32)
+        torch.cuda.synchronize()
+        comb = solver.combustion
+        what = (f"{comb.n_bins} chemistry bins, sort '{comb.sort}'"
+                if path == "stiff" else
+                f"DF-ODENet {len(comb.net.nets)} nets "
+                f"{[comb.net.nets[0][0][0].shape[0]] + [W.shape[1] for W, _ in comb.net.nets[0]]}"
+                f" in {comb.net.compute_dtype}, y_std {float(comb.net.y_std[0]):g}")
+        print(f"{path} path: {n}^3 float32 reacting LES TGV built in "
+              f"{time.perf_counter() - t0:.2f} s ({what}, dt {dt:g} s)")
+    else:
+        solver, state = built
+    n_cells = state.T.numel()
+    for i in range(2 if path == "fl" else 1):
+        t0 = time.perf_counter()
+        state, diag = solver.step(state, dt)
+        torch.cuda.synchronize()
+        print(f"{path} warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
     T_before = state.T.clone()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, diag = solver.step(state, DT)
+        state, diag = solver.step(state, dt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launches)
     ms = wall / steps * 1e3
     print(f"{path} path counts over {steps} steps: {json.dumps(counts)}")
     print(f"{path} path: {ms:.2f} ms/step, "
-          f"{n ** 3 / (wall / steps):.4e} cell-updates/s, "
+          f"{n_cells / (wall / steps):.4e} cell-updates/s ({n_cells} cells), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{path} diagnostics of the last step: " + json.dumps(
         {k: float(v) for k, v in diag.items()}))
@@ -422,15 +551,18 @@ def phase_main(torch, K, path: str, n: int, steps: int,
               f"mlp_fused launched {counts['mlp_fused']} times in {steps} steps")
     check(bool(torch.isfinite(state.T).all() and torch.isfinite(state.p).all()),
           f"{path}: non-finite T or p")
-    check(state.T.shape == (n, n, n) and state.Y.shape == (9, n, n, n),
-          f"{path}: state shapes")
     check(float((state.T - T_before).abs().max()) > 0.0, f"{path}: T did not change")
-    check(float((state.Y.sum(0) - 1.0).abs().max()) < 1e-5,
-          f"{path}: mass fractions do not sum to 1")
+    if path == "fl":
+        _check_fl(torch, solver, state, n_cells)
+    else:
+        check(state.T.shape == (n, n, n) and state.Y.shape == (9, n, n, n),
+              f"{path}: state shapes")
+        check(float((state.Y.sum(0) - 1.0).abs().max()) < 1e-5,
+              f"{path}: mass fractions do not sum to 1")
     if path == "dnn":
         _check_dnn_rates(torch, solver, state)
     _breakdown_step(torch, solver, state, path)
-    if profile or path == "dnn":
+    if profile or path != "stiff":
         _profile_step(torch, solver, state, ms, profile, path)
     return counts
 
@@ -468,8 +600,8 @@ def _breakdown_step(torch, solver, state, path: str) -> None:
     import deepflame_torch.combustion.basic as basic
     from deepflame_torch.combustion import DNNChemistry
 
-    owner, attr = ((basic, "solve_chemistry") if path == "stiff"
-                   else (DNNChemistry, "correct"))
+    owner, attr = ((DNNChemistry, "correct") if path == "dnn"
+                   else (basic, "solve_chemistry"))
     inner, spent = getattr(owner, attr), []
 
     def timed(*a, **k):
@@ -483,7 +615,7 @@ def _breakdown_step(torch, solver, state, path: str) -> None:
     setattr(owner, attr, timed)
     try:
         t0 = time.perf_counter()
-        solver.step(state, DT)
+        solver.step(state, STEP_DT[path])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -500,7 +632,7 @@ def _profile_step(torch, solver, state, step_ms: float, out: str | None,
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.step(state, DT)
+        solver.step(state, STEP_DT[path])
         torch.cuda.synchronize()
     # device-side events (kernels, copies, fills) of the one stream
     dev = [e for e in prof.events()
@@ -598,8 +730,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="profile one extra step of each main path (the DNN "
-                         "path always is); write the device-time tables to "
-                         "FILE with _stiff and _dnn before its extension")
+                         "and face-list paths always are); write the "
+                         "device-time tables to FILE with _stiff, _dnn and "
+                         "_fl before its extension")
     args = ap.parse_args()
 
     import torch
@@ -624,14 +757,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    figures = phase_kernels(torch, K)
+    jet = build_jet(torch, N_JET)
+    figures = phase_kernels(torch, K, jet[0].p_ell)
     phase_reference(torch, K)
     counts = {path: phase_main(torch, K, path, N_MAIN, STEPS, args.profile)
               for path in ("stiff", "dnn")}
+    counts["fl"] = phase_main(torch, K, "fl", N_JET, STEPS, args.profile,
+                              built=jet)
+    del jet
     phase_runtime(torch, K, N_RUNTIME)
 
-    # each kernel's launches on its own path (the fused MLP: the DNN path)
-    own = lambda name: "dnn" if name == "mlp_fused" else "stiff"
+    # each kernel's launches on its own path
+    own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,
+                                                                    "stiff")
     kernels = [dict(name=name, launches=counts[own(name)][name], **f)
                for name, f in figures.items()]
     for k in kernels:

@@ -1,6 +1,8 @@
 """Case builders of the port: the reacting Taylor-Green configurations that
-`__graft_entry__._build` and `_build_3d_les` build for the JAX package, and
-the DNN-chemistry variant of the 3D one that `tools/bench_dnn.py` builds.
+`__graft_entry__._build` and `_build_3d_les` build for the JAX package, the
+DNN-chemistry variant of the 3D one that `tools/bench_dnn.py` builds, and
+the 3D LES jet flame of `__graft_entry__._build_3d_jet` on a blockMesh mesh
+(the face-list path).
 
 Each returns (solver, state) on `device` (default: the CUDA card).
 """
@@ -16,12 +18,14 @@ from .chemistry import load_mechanism, make_kinetics, make_thermo, make_transpor
 from .chemistry.integrator import RosenbrockOptions
 from .chemistry.dnn import LAYERS, DFODENet, init_params
 from .combustion import DNNChemistry, Laminar
-from .mesh import StructuredMesh, cyclic, empty
-from .solvers import LowMachConfig, LowMachSolver
+from .mesh import (StructuredMesh, build_blockmesh, cyclic, empty, fixed_value,
+                   parse_blockmesh_dict, zero_gradient)
+from .solvers import LowMachConfig, LowMachSolver, LowMachSolverFL
 from .turbulence import sigma_model
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
-           "reacting_hot_spot_2d"]
+           "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
+           "jet_initial_fields", "jet_flame_3d_les_fl"]
 
 
 def _fresh_mixture(mech):
@@ -123,3 +127,139 @@ def reacting_hot_spot_2d(mech_path: str, n: int = 32, dtype=torch.float32,
     Y = torch.as_tensor(_fresh_mixture(mech), dtype=dtype, device=mesh.device)
     Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
     return solver, solver.initial_state(p, T, Y.contiguous())
+
+
+# Sandia-flame-family jet (__graft_entry__._build_3d_jet): a D = 7.2 mm H2/N2
+# fuel jet at 50 m/s with a hot pilot annulus into a 0.9 m/s air coflow,
+# over x in [0, 60] mm (streamwise), y, z in [-15, 15] mm
+JET_D = 7.2e-3
+_JET_BLOCKMESH = """
+convertToMeters 0.001;
+vertices
+(
+    (0 -15 -15) (60 -15 -15) (60 15 -15) (0 15 -15)
+    (0 -15 15) (60 -15 15) (60 15 15) (0 15 15)
+);
+blocks
+(
+    hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading ({gx} {gy} {gz})
+);
+boundary
+(
+    inlet {{ type patch; faces ((0 4 7 3)); }}
+    outlet {{ type patch; faces ((1 2 6 5)); }}
+    ylo {{ type patch; faces ((0 1 5 4)); }}
+    yhi {{ type patch; faces ((3 7 6 2)); }}
+    zlo {{ type patch; faces ((0 3 2 1)); }}
+    zhi {{ type patch; faces ((4 5 6 7)); }}
+);
+"""
+
+
+def _grading_text(g) -> str:
+    """A simpleGrading entry: a ratio, or a multi-section list of
+    (length fraction, cell fraction, ratio)."""
+    if isinstance(g, (list, tuple)):
+        return "(" + " ".join(f"({a} {b} {r})" for a, b, r in g) + ")"
+    return str(g)
+
+
+def jet_blockmesh_dict(n: int = 64, grading=(1, 1, 1)) -> str:
+    """blockMeshDict of the jet: one hex block of (2n, n, n) cells, one patch
+    per side (inlet x-, outlet x+, ylo, yhi, zlo, zhi)."""
+    return _JET_BLOCKMESH.format(nx=2 * n, ny=n, nz=n,
+                                 **{k: _grading_text(g) for k, g in
+                                    zip(("gx", "gy", "gz"), grading)})
+
+
+def jet_inlet_profiles(yz: np.ndarray, ns: int, species_index) -> dict:
+    """Inlet zones per face from its (y, z) centre: fuel jet r < D/2 (30 %
+    H2 / 70 % N2 by mass, 50 m/s, 300 K), pilot D/2 <= r < D (0.5 % H2,
+    half the air's O2, 10 m/s, 1900 K), coflow (air, 0.9 m/s, 750 K).
+    Returns u, T (nb,) and Y (nb, ns) as numpy."""
+    iH2, iO2 = species_index("H2"), species_index("O2")
+    iN2 = species_index("N2")
+    r = np.sqrt(yz[:, 0] ** 2 + yz[:, 1] ** 2)
+    in_jet = r < JET_D / 2
+    in_pilot = (r >= JET_D / 2) & (r < JET_D)
+    Y = np.zeros((r.shape[0], ns))
+    Y[:, iH2] = np.where(in_jet, 0.30, np.where(in_pilot, 0.005, 0.0))
+    Y[:, iO2] = np.where(in_jet, 0.0, 0.233 * (1.0 - in_pilot * 0.5))
+    Y[:, iN2] = 1.0 - Y[:, iH2] - Y[:, iO2]
+    return dict(u=np.where(in_jet, 50.0, np.where(in_pilot, 10.0, 0.9)),
+                T=np.where(in_jet, 300.0, np.where(in_pilot, 1900.0, 750.0)),
+                Y=Y)
+
+
+def jet_initial_fields(centers: np.ndarray, ns: int, species_index) -> dict:
+    """The jet's initial interior on cell centres (n, 3): coflow air with a
+    developing jet core and a 1900 K kernel just downstream of the pilot.
+    Returns p, T (n,), U (n, 3) and Y (n, ns) as numpy."""
+    iH2, iO2 = species_index("H2"), species_index("O2")
+    iN2 = species_index("N2")
+    X, Yg, Z = centers[:, 0], centers[:, 1], centers[:, 2]
+    D = JET_D
+    rr = np.sqrt(Yg ** 2 + Z ** 2)
+    wjet = np.exp(-(rr / (D / 2)) ** 2) * np.exp(-X / (4 * D))
+    U = np.zeros((X.shape[0], 3))
+    U[:, 0] = 0.9 + (50.0 - 0.9) * wjet
+    Y = np.zeros((X.shape[0], ns))
+    Y[:, iH2] = 0.30 * wjet
+    Y[:, iO2] = 0.233 * (1.0 - wjet)
+    Y[:, iN2] = 1.0 - Y[:, iH2] - Y[:, iO2]
+    hot = (rr < D) & (X < 2.5 * D)
+    return dict(p=np.full(X.shape[0], 101325.0), U=U, Y=Y,
+                T=np.where(hot, 1900.0, 750.0))
+
+
+def jet_flame_3d_les_fl(mech_path: str, n: int = 64, dtype=torch.float32,
+                        grading=(1, 1, 1), device=None, mesh=None):
+    """The 3D LES jet flame (BASELINE config 5, `_build_3d_jet`) on the
+    face-list path: the blockMeshDict of `jet_blockmesh_dict(n, grading)`
+    -> GeneralMesh -> per-field FaceListMeshes -> LowMachSolverFL with the
+    species in BC groups (H2), (O2), (N2) and the six zero-inlet species,
+    Laminar stiff chemistry (rtol 1e-4, atol 1e-8), the Sigma model and the
+    pressure matvec through ell_matvec. Inlet profiles per face from the
+    inlet's face centres; p fixed at the outlet; zeroGradient elsewhere.
+    `mesh`: the GeneralMesh of that blockMeshDict, when the caller has
+    built it (blockMesh takes most of the set-up at n = 64)."""
+    mech = load_mechanism(mech_path, device=device)
+    dev = mech.device
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    ns = mech.n_species
+    gm = mesh if mesh is not None else build_blockmesh(
+        parse_blockmesh_dict(jet_blockmesh_dict(n, grading)))
+    inlet = gm.patches[gm.patch_names.index("inlet")]
+    prof = jet_inlet_profiles(inlet.f_ctr[:, 1:], ns, mech.species_index)
+    Y_in = prof["Y"]
+    iH2, iO2, iN2 = (mech.species_index(s) for s in ("H2", "O2", "N2"))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    T_in, Yt_in = f(prof["T"]), f(Y_in)
+    h_in = th.h_mass(T_in, Yt_in)
+    rho_in = th.rho(f(101325.0), T_in, Yt_in)
+
+    zg = zero_gradient()
+    walls = {k: zg for k in ("outlet", "ylo", "yhi", "zlo", "zhi")}
+    mk = lambda inlet_bc, **kw: gm.with_bcs(
+        {**walls, "inlet": inlet_bc, **kw}, dtype, device=dev)
+    m_U = (mk(fixed_value(prof["u"])), mk(fixed_value(0.0)),
+           mk(fixed_value(0.0)))
+    groups = [(iH2,), (iO2,), (iN2,),
+              tuple(i for i in range(ns) if i not in (iH2, iO2, iN2))]
+    m_Y_groups = tuple((mk(fixed_value(Y_in[:, g[0]])), g) for g in groups)
+    m_p = mk(zg, outlet=fixed_value(101325.0))
+    comb = Laminar(th, kin, ode_opts=RosenbrockOptions(
+        rtol=1e-4, atol=1e-8, max_steps=2000, grow=10.0),
+        n_bins=128 if n >= 48 else 32)
+    solver = LowMachSolverFL(
+        m_p=m_p, m_h=mk(fixed_value(h_in)), m_Y=m_Y_groups[-1][0],
+        m_rho=mk(fixed_value(rho_in)), m_U=m_U, thermo=th, transport=tr,
+        combustion=comb,
+        config=LowMachConfig(chemistry=True, inert_index=iN2),
+        m_Y_groups=m_Y_groups, p_ell=m_p.ell_connectivity(),
+        les=sigma_model())
+    init = jet_initial_fields(gm.centers, ns, mech.species_index)
+    return solver, solver.initial_state(init["p"], init["T"], init["Y"],
+                                        init["U"])

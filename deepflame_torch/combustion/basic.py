@@ -30,15 +30,19 @@ class CombustionModel:
     n_bins: int = 32
     sort: str = "T"
 
-    def correct(self, T, p, Y, dt, dt_start=None) -> ChemistryResult:
+    def correct(self, T, p, Y, dt, turb=None, dt_start=None) -> ChemistryResult:
+        """Reaction rates over dt. `turb`: the turbulence fields (k,
+        epsilon, nu) that mixing models read; `dt_start`: per-cell warm-start
+        step of the stiff integrator."""
         raise NotImplementedError
 
 
 @dataclasses.dataclass(frozen=True)
 class Laminar(CombustionModel):
-    """No turbulence-chemistry interaction: RR straight from the integrator."""
+    """No turbulence-chemistry interaction: RR straight from the integrator
+    (`turb` is not read)."""
 
-    def correct(self, T, p, Y, dt, dt_start=None) -> ChemistryResult:
+    def correct(self, T, p, Y, dt, turb=None, dt_start=None) -> ChemistryResult:
         return solve_chemistry(self.thermo, self.kinetics, T, p, Y, dt,
                                opts=self.ode_opts,
                                T_threshold=self.T_threshold,
@@ -50,6 +54,6 @@ class Laminar(CombustionModel):
 class NoCombustion(CombustionModel):
     """Chemistry disabled."""
 
-    def correct(self, T, p, Y, dt, dt_start=None) -> ChemistryResult:
+    def correct(self, T, p, Y, dt, turb=None, dt_start=None) -> ChemistryResult:
         return ChemistryResult(T=T, Y=Y, RR=torch.zeros_like(Y),
                                Qdot=torch.zeros_like(T))

@@ -29,7 +29,7 @@ class DNNChemistry(CombustionModel):
     T_valid_min: float = 0.0
     T_valid_max: float = 1e9
 
-    def correct(self, T, p, Y, dt, dt_start=None) -> ChemistryResult:
+    def correct(self, T, p, Y, dt, turb=None, dt_start=None) -> ChemistryResult:
         if self.net is None:
             raise ValueError("DNNChemistry requires a DFODENet")
         rho = self.thermo.rho(p, T, Y)

@@ -15,8 +15,10 @@ from .chemistry.dnn import DFODENet
 from .chemistry.mechanism import MECHANISM_ARRAYS, Mechanism
 from .device import resolve_device
 from .solvers.low_mach import LowMachState
+from .solvers.low_mach_fl import LowMachFLState
 
-__all__ = ["mechanism_from_numpy", "state_from_numpy", "dfodenet_from_numpy"]
+__all__ = ["mechanism_from_numpy", "state_from_numpy", "fl_state_from_numpy",
+           "dfodenet_from_numpy"]
 
 
 def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
@@ -43,6 +45,24 @@ def state_from_numpy(d: dict, dtype=torch.float64, device=None) -> LowMachState:
         rho=f(d["rho"]), U=f(d["U"]), p=f(d["p"]), ha=f(d["ha"]), Y=f(d["Y"]),
         T=f(d["T"]), phi=tuple(f(x) for x in d["phi"]), dpdt=f(d["dpdt"]),
         time=f(d["time"]), chem_dt=None if chem_dt is None else f(chem_dt))
+
+
+def fl_state_from_numpy(d: dict, dtype=torch.float64,
+                        device=None) -> LowMachFLState:
+    """LowMachFLState from a dict of numpy fields of a face-list state: rho,
+    U (n, 3), p, ha, Y (n, ns), T, dpdt, time, phi (nf,), phi_b (sequence of
+    per-patch arrays) and optionally chem_dt (absent, None or empty when
+    chemistry is off, as the JAX package's `()`)."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    chem_dt = d.get("chem_dt")
+    if chem_dt is not None and np.size(chem_dt) == 0:
+        chem_dt = None
+    return LowMachFLState(
+        rho=f(d["rho"]), U=f(d["U"]), p=f(d["p"]), ha=f(d["ha"]), Y=f(d["Y"]),
+        T=f(d["T"]), phi=f(d["phi"]), phi_b=tuple(f(x) for x in d["phi_b"]),
+        dpdt=f(d["dpdt"]), time=f(d["time"]),
+        chem_dt=None if chem_dt is None else f(chem_dt))
 
 
 def dfodenet_from_numpy(nets, x_mean, x_std, y_mean, y_std, delta_t: float,

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the solver path, their plain versions, and
 their build.
 
-Four CUDA C++ kernels (sources in `deepflame_torch/csrc/`) replace the four
-Pallas TPU kernels that the low-Mach step runs:
+Five CUDA C++ kernels (sources in `deepflame_torch/csrc/`) replace the five
+Pallas TPU kernels of the low-Mach steps:
 
 =====================  =====================================================
 wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
@@ -15,6 +15,8 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
                        chemistry
 `mlp_fused`            `mlp_fused_lanes`: the DF-ODENet MLPs of the DNN
                        chemistry (bf16 tensor cores, or f32/f64 FMA)
+`ell_matvec`           `ell_matvec`: the pressure-CG matvec of the face-list
+                       step on a general (blockMesh, polyMesh) mesh
 =====================  =====================================================
 
 Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
@@ -43,7 +45,7 @@ import torch.nn.functional as F_nn
 
 __all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse", "mlp_fused",
            "stencil_apply_plain", "helmholtz_apply_plain", "gj_inverse_plain",
-           "mlp_fused_plain", "launches", "reset_launches", "build",
+           "mlp_fused_plain", "ell_matvec", "ell_matvec_plain", "launches", "reset_launches", "build",
            "find_nvcc", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -58,6 +60,7 @@ _KERNELS = {
     "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
     "gj_inverse": ("gj_inverse.cu", [_P, _P, _I, _L, _P]),
     "mlp_fused": ("mlp_fused.cu", [_P] * 10 + [_I] * 7 + [_P]),
+    "ell_matvec": ("ell_matvec.cu", [_P] * 5 + [_L, _I, _P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
@@ -375,4 +378,39 @@ def mlp_fused(x, Ws, bs, chunk: int | None = None):
         return out
     _launch("mlp_fused", wdt, x.device, *[t.data_ptr() for t in ops],
             out.data_ptr(), B, F, K1, H1, H2, H3, S)
+    return out
+
+
+# ------------------------------------------------------------ ELLPACK SpMV
+
+def ell_matvec_plain(x, diag, nbr, coef):
+    """Plain version: diag x + sum_w coef[:, w] x[nbr[:, w]] (the JAX
+    package's non-Pallas expression, FvMatrixFL.apply_ell)."""
+    return diag * x + (coef * x[nbr.long()]).sum(1)
+
+
+def ell_matvec(x, diag, nbr, coef):
+    """ELLPACK SpMV out[c] = diag[c] x[c] + sum_w coef[c, w] x[nbr[c, w]].
+
+    x, diag: (n,); nbr: (n, w) int32, pad slots pointing at any valid row
+    (the face-list mesh pads with the row's own index) with coefficient 0;
+    coef: (n, w). float32 or float64."""
+    if x.device.type == "cpu":
+        return ell_matvec_plain(x, diag, nbr, coef)
+    _check("ell_matvec", [x, diag, nbr, coef],
+           [x.dtype, x.dtype, torch.int32, x.dtype])
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ell_matvec: takes float32 or float64, got {x.dtype}")
+    n = x.shape[0]
+    if (x.dim() != 1 or diag.shape != (n,) or nbr.dim() != 2
+            or nbr.shape[0] != n or coef.shape != nbr.shape):
+        raise ValueError(f"ell_matvec: shapes x {tuple(x.shape)}, diag "
+                         f"{tuple(diag.shape)}, nbr {tuple(nbr.shape)}, coef "
+                         f"{tuple(coef.shape)}; expected (n,), (n,), (n, w), "
+                         f"(n, w)")
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    _launch("ell_matvec", x.dtype, x.device, x.data_ptr(), diag.data_ptr(),
+            nbr.data_ptr(), coef.data_ptr(), out.data_ptr(), n, nbr.shape[1])
     return out

@@ -4,9 +4,11 @@ Port of deepflame_tpu/ops/linsolve.py. The JAX package solves a batch of
 fields (species, velocity components) by mapping one `lax.while_loop` over
 the batch with vmap; each lane then iterates until its own test passes and
 counts its own iterations. Here the batch is an explicit leading dimension:
-fields are (..., nx, ny, nz), every dot product and norm reduces over the
-last three dimensions only, and each lane carries an active flag, frozen once
-converged (or after a breakdown), and its own iteration count.
+fields are (..., nx, ny, nz) on a structured mesh or (..., n_cells) on a
+face-list mesh (`nd`, the number of trailing field dimensions, is 3 or 1),
+every dot product and norm reduces over the field dimensions only, and each
+lane carries an active flag, frozen once converged (or after a breakdown),
+and its own iteration count.
 
 The loop is Python and reads "any lane active" back to the host every
 `CHECK_EVERY` trips; trips after a lane stopped are exact no-ops for it, so
@@ -22,7 +24,6 @@ from .kernels import stencil7_apply
 
 __all__ = ["SolverResult", "cg", "bicgstab", "solve_fvmatrix"]
 
-_DIMS = (-3, -2, -1)
 # trips between host reads of "any lane active"
 CHECK_EVERY = 4
 
@@ -34,17 +35,17 @@ class SolverResult(NamedTuple):
     iterations: torch.Tensor         # per lane
 
 
-def _vsum(x):
-    return x.sum(dim=_DIMS)
+def _vsum(x, nd):
+    return x.sum(dim=tuple(range(-nd, 0)))
 
 
-def _dot(a, b):
-    return _vsum(a * b)
+def _dot(a, b, nd):
+    return _vsum(a * b, nd)
 
 
-def _b(s):
+def _b(s, nd):
     """Per-lane scalar -> broadcastable against fields."""
-    return s[..., None, None, None]
+    return s.reshape(s.shape + (1,) * nd)
 
 
 def _safe_div(a, b):
@@ -56,26 +57,27 @@ def _safe_div(a, b):
     return a / safe
 
 
-def _norm_factor(A, b, x):
+def _norm_factor(A, b, x, nd):
     """OpenFOAM lduMatrix normFactor: ||A xref - b|| with xref = mean(x)."""
-    xbar = _b(x.mean(dim=_DIMS)) * torch.ones_like(x)
+    xbar = _b(x.mean(dim=tuple(range(-nd, 0))), nd) * torch.ones_like(x)
     Axbar = A(xbar)
-    norm = _vsum((A(x) - Axbar).abs()) + _vsum((b - Axbar).abs())
+    norm = _vsum((A(x) - Axbar).abs(), nd) + _vsum((b - Axbar).abs(), nd)
     return torch.clamp(norm, min=torch.finfo(b.dtype).tiny)
 
 
 def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
-       rel_tol: float = 0.0, max_iter: int = 1000) -> SolverResult:
-    """Preconditioned conjugate gradient for SPD A (the pressure equation)."""
+       rel_tol: float = 0.0, max_iter: int = 1000, nd: int = 3) -> SolverResult:
+    """Preconditioned conjugate gradient for SPD A (the pressure equation).
+    `nd`: trailing field dimensions (3 structured, 1 face-list)."""
     if M_inv is None:
         M_inv = lambda r: r
-    norm = _norm_factor(A, b, x0)
+    norm = _norm_factor(A, b, x0, nd)
     x = x0
     r = b - A(x0)
-    res0 = _vsum(r.abs()) / norm
+    res0 = _vsum(r.abs(), nd) / norm
     z = M_inv(r)
     p = z
-    rz = _dot(r, z)
+    rz = _dot(r, z, nd)
     res = res0
     it = torch.zeros(res0.shape, dtype=torch.long, device=b.device)
 
@@ -87,18 +89,18 @@ def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
         for _ in range(min(CHECK_EVERY, max_iter - trips)):
             act = active()
             Ap = A(p)
-            alpha = _safe_div(rz, _dot(p, Ap))
-            x_n = x + _b(alpha) * p
-            r_n = r - _b(alpha) * Ap
+            alpha = _safe_div(rz, _dot(p, Ap, nd))
+            x_n = x + _b(alpha, nd) * p
+            r_n = r - _b(alpha, nd) * Ap
             z = M_inv(r_n)
-            rz_new = _dot(r_n, z)
+            rz_new = _dot(r_n, z, nd)
             beta = _safe_div(rz_new, rz)
-            p_n = z + _b(beta) * p
-            res_n = _vsum(r_n.abs()) / norm
+            p_n = z + _b(beta, nd) * p
+            res_n = _vsum(r_n.abs(), nd) / norm
             # breakdown guard: a non-finite step keeps the last good x and
             # stops the lane (res = -1)
             ok = torch.isfinite(res_n)
-            upd = _b(act & ok)
+            upd = _b(act & ok, nd)
             x = torch.where(upd, x_n, x)
             r = torch.where(upd, r_n, r)
             p = torch.where(upd, p_n, p)
@@ -111,14 +113,15 @@ def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
 
 def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
              tol: float = 1e-6, rel_tol: float = 0.0,
-             max_iter: int = 1000) -> SolverResult:
-    """Preconditioned BiCGStab for nonsymmetric A (convection-diffusion)."""
+             max_iter: int = 1000, nd: int = 3) -> SolverResult:
+    """Preconditioned BiCGStab for nonsymmetric A (convection-diffusion).
+    `nd`: trailing field dimensions (3 structured, 1 face-list)."""
     if M_inv is None:
         M_inv = lambda r: r
-    norm = _norm_factor(A, b, x0)
+    norm = _norm_factor(A, b, x0, nd)
     x = x0
     r = b - A(x0)
-    res0 = _vsum(r.abs()) / norm
+    res0 = _vsum(r.abs(), nd) / norm
     r_hat = r
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
@@ -135,25 +138,25 @@ def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
     while trips < max_iter and bool(active().any()):
         for _ in range(min(CHECK_EVERY, max_iter - trips)):
             act = active()
-            rho_new = _dot(r_hat, r)
+            rho_new = _dot(r_hat, r, nd)
             beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
-            p_n = r + _b(beta) * (p - _b(omega) * v)
+            p_n = r + _b(beta, nd) * (p - _b(omega, nd) * v)
             p_hat = M_inv(p_n)
             v_n = A(p_hat)
-            alpha_n = _safe_div(rho_new, _dot(r_hat, v_n))
-            s = r - _b(alpha_n) * v_n
+            alpha_n = _safe_div(rho_new, _dot(r_hat, v_n, nd))
+            s = r - _b(alpha_n, nd) * v_n
             s_hat = M_inv(s)
             t = A(s_hat)
-            omega_n = _safe_div(_dot(t, s), _dot(t, t))
-            x_n = x + _b(alpha_n) * p_hat + _b(omega_n) * s_hat
-            r_n = s - _b(omega_n) * t
-            res_n = _vsum(r_n.abs()) / norm
+            omega_n = _safe_div(_dot(t, s, nd), _dot(t, t, nd))
+            x_n = x + _b(alpha_n, nd) * p_hat + _b(omega_n, nd) * s_hat
+            r_n = s - _b(omega_n, nd) * t
+            res_n = _vsum(r_n.abs(), nd) / norm
             ok = torch.isfinite(res_n)
             up = act & ok
-            x = torch.where(_b(up), x_n, x)
-            r = torch.where(_b(up), r_n, r)
-            p = torch.where(_b(up), p_n, p)
-            v = torch.where(_b(up), v_n, v)
+            x = torch.where(_b(up, nd), x_n, x)
+            r = torch.where(_b(up, nd), r_n, r)
+            p = torch.where(_b(up, nd), p_n, p)
+            v = torch.where(_b(up, nd), v_n, v)
             rho = torch.where(up, rho_new, rho)
             alpha = torch.where(up, alpha_n, alpha)
             omega = torch.where(up, omega_n, omega)
@@ -166,9 +169,21 @@ def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
 def solve_fvmatrix(eqn, x0, symmetric: bool = False, tol: float = 1e-7,
                    rel_tol: float = 0.0, max_iter: int = 1000,
                    stencil=None) -> SolverResult:
-    """Solve an FvMatrix (or a batch of them) with Jacobi preconditioning;
-    the matvec is the stencil kernel on the folded coefficients and
-    diag(A) = D is exact. `stencil`: eqn.stencil() when the caller has it."""
+    """Solve an FvMatrix (or a batch of them) with Jacobi preconditioning.
+    Structured: the matvec is the stencil kernel on the folded coefficients
+    and diag(A) = D is exact; `stencil`: eqn.stencil() when the caller has
+    it. Face-list (FvMatrixFL, batched over leading dimensions of its
+    coefficients): the matvec is eqn.apply and the diagonal eqn.diag(), the
+    JAX package's branch for meshes without a shift plan."""
+    if not hasattr(eqn, "stencil"):
+        d = eqn.diag()
+        shape = torch.broadcast_shapes(d.shape, eqn.rhs().shape, x0.shape)
+        d = torch.broadcast_to(d, shape)
+        d_inv = 1.0 / torch.where(d.abs() > 1e-300, d, torch.ones_like(d))
+        solver = cg if symmetric else bicgstab
+        return solver(eqn.apply, torch.broadcast_to(eqn.rhs(), shape),
+                      torch.broadcast_to(x0, shape).contiguous(),
+                      lambda r: d_inv * r, tol, rel_tol, max_iter, nd=1)
     st = eqn.stencil() if stencil is None else stencil
     if st is None:
         raise NotImplementedError("solve_fvmatrix needs 7-point stencil "

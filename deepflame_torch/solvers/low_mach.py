@@ -78,6 +78,9 @@ class LowMachState(NamedTuple):
 class LowMachConfig:
     n_outer: int = 1          # nOuterCorrectors (1 = PISO mode)
     n_corr: int = 2           # pressure correctors
+    n_nonortho: int = 0       # extra pressure solves with the non-orthogonal
+                              # correction rebuilt from the latest p (face-
+                              # list meshes whose faces carry k_no)
     p_relax: float = 0.3      # pressure under-relaxation between outers
     u_relax: float = 0.7      # velocity under-relaxation between outers
     div_scheme: str = "limitedLinear"
@@ -92,6 +95,7 @@ class LowMachConfig:
     max_iter_u: int = 100
     max_iter_p: int = 500
     unity_lewis: bool = False
+    solve_energy: bool = True          # False freezes ha (and so T)
     chemistry: bool = True
     chemistry_dt_scale: float = 1.0    # 2.0 for splittingStrategy chem steps
     inert_index: int | None = None     # species closed as 1 - sum(others)
@@ -301,10 +305,11 @@ class LowMachSolver:
                      + fvm_laplacian(alpha_f, mesh, bcs_h, dtype=dtype,
                                      sign=-1.0))
             eqn_h = eqn_h.with_source(dpdt - dKdt + hcorr_div)
-            res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
-                                   max_iter=cfg.max_iter_u)
-            ha = res_h.x
-            diag["iters_h"] = res_h.iterations
+            if cfg.solve_energy:
+                res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
+                                       max_iter=cfg.max_iter_u)
+                ha = res_h.x
+                diag["iters_h"] = res_h.iterations
 
             # ===== correctThermo: T from (ha, Y)
             Yt = torch.movedim(Y, 0, -1)

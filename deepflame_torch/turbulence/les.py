@@ -1,8 +1,9 @@
 """LES subgrid-scale turbulence models: Smagorinsky, WALE and Sigma.
 
-Port of deepflame_tpu/turbulence/les.py (the structured-mesh models; the
-dynamic Smagorinsky model and the face-list variants are later slices). All
-models are local tensor algebra on the velocity gradient; the solver consumes
+Port of deepflame_tpu/turbulence/les.py, on structured and face-list meshes
+(the dynamic Smagorinsky model, which needs a structured test filter, is a
+later slice). All models are local tensor algebra on the velocity gradient,
+with the cube-root cell volume as filter width; the solver consumes
 mu_t through the effective coefficients mu + mu_t, alpha + mu_t/Pr_t and
 rhoD + mu_t/Sc_t. The Sigma model's singular values come from the analytic
 eigenvalues of the symmetric 3x3 field g^T g, evaluated elementwise.
@@ -31,18 +32,48 @@ class LESModel:
     Pr_t: float = 0.85
     Sc_t: float = 0.7
 
+    def sgs_k_epsilon(self, mu_t, rho, mesh: StructuredMesh):
+        """SGS kinetic energy and dissipation from equilibrium scaling,
+        k = (nu_t/(Ck delta))^2, eps = Ce k^1.5/delta (Ck = 0.094, Ce =
+        1.048), what EDC and PaSR read as k and epsilon."""
+        return _sgs_k_epsilon(mu_t, rho,
+                              (mesh.dx * mesh.dy * mesh.dz) ** (1.0 / 3.0))
+
     def mu_t(self, rho, U, bcs_U, mesh: StructuredMesh):
         delta = (mesh.dx * mesh.dy * mesh.dz) ** (1.0 / 3.0)
         g = torch.stack([grad(U[c], bcs_U[c], mesh) for c in range(3)])
+        return rho * self._nut_from_grad(g, delta)
+
+    def _nut_from_grad(self, g, delta):
+        """SGS viscosity from a velocity gradient g (3, 3, ...), g[i, j] =
+        dU_i/dx_j; delta a number or a per-cell tensor."""
         if self.kind == "Smagorinsky":
-            nut = _smag_nut(g, self.Cs, delta)
-        elif self.kind == "WALE":
-            nut = _wale_nut(g, self.Cw, delta)
-        elif self.kind == "Sigma":
-            nut = _sigma_nut(g, self.Csigma, delta)
-        else:
-            raise ValueError(self.kind)
-        return rho * nut
+            return _smag_nut(g, self.Cs, delta)
+        if self.kind == "WALE":
+            return _wale_nut(g, self.Cw, delta)
+        if self.kind == "Sigma":
+            return _sigma_nut(g, self.Csigma, delta)
+        raise ValueError(self.kind)
+
+    # ------------------------------------------------- face-list backend
+    def mu_t_fl(self, rho, U, m_U, volumes):
+        """SGS viscosity on a FaceListMesh: the Gauss cell gradient of the
+        velocity components (grad_multi_fl with their BC meshes m_U) and
+        delta = V^(1/3) per cell. U (n, 3) -> (n,)."""
+        from ..ops.fv_facelist import grad_multi_fl
+        gU = grad_multi_fl(m_U, U)              # (n, 3, 3): [n, i, j]
+        g = torch.movedim(gU, 0, -1)            # (3, 3, n)
+        return rho * self._nut_from_grad(g, volumes ** (1.0 / 3.0))
+
+    def sgs_k_epsilon_fl(self, mu_t, rho, volumes):
+        """sgs_k_epsilon with the per-cell delta of a face-list mesh."""
+        return _sgs_k_epsilon(mu_t, rho, volumes ** (1.0 / 3.0))
+
+
+def _sgs_k_epsilon(mu_t, rho, delta):
+    Ck, Ce = 0.094, 1.048
+    k = (mu_t / rho / (Ck * delta)) ** 2
+    return k, Ce * k ** 1.5 / delta
 
 
 def smagorinsky(**kw) -> LESModel:

@@ -95,6 +95,21 @@ def test_helmholtz_plain_skips_size_one_axis():
                                atol=1e-12)
 
 
+def test_ell_plain_matches_pallas():
+    """ell_matvec's plain version (what CPU tensors take) against the Pallas
+    kernel in interpret mode, on random operands with pad slots, float64,
+    1e-13 of the largest |out| (the order of the six-term row sums)."""
+    from deepflame_tpu.ops.pallas_kernels import ell_matvec
+    x, diag, nbr, coef = _ell_operands("cpu", torch.float64, n=3000)
+    ref = ell_matvec(x.numpy(), diag.numpy(), nbr.numpy(), coef.numpy(),
+                     block=256, interpret=True)
+    before = dict(K.launches)
+    out = K.ell_matvec(x, diag, nbr, coef)
+    assert K.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-13 * np.abs(np.asarray(ref)).max())
+
+
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), (np.float64, 1e-12)])
 def test_gj_plain_matches_pallas(dtype, tol):
     """Lanes-last Gauss-Jordan inverse; float32 at the Pallas test's 2e-5,
@@ -175,6 +190,44 @@ def test_cuda_gj_matches_plain(cuda, dtype):
     with pytest.raises(ValueError):
         K.gj_inverse(torch.zeros((too_big, too_big, 4), device=cuda,
                                  dtype=dtype))
+
+
+def _ell_operands(device, dtype, n=50_000, seed=4):
+    """A random 3D-like ELL matrix: 6 slots per row, every fifth slot a pad
+    pointing at the row itself with coefficient 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nbr = torch.randint(0, n, (n, 6), generator=g, device=device,
+                        dtype=torch.int32)
+    coef = torch.randn((n, 6), generator=g, device=device, dtype=dtype)
+    pad = torch.rand((n, 6), generator=g, device=device) < 0.2
+    rows = torch.arange(n, device=device, dtype=torch.int32)[:, None]
+    nbr = torch.where(pad, rows.expand(n, 6), nbr).contiguous()
+    coef = torch.where(pad, torch.zeros_like(coef), coef)
+    x, diag = (torch.randn(n, generator=g, device=device, dtype=dtype)
+               for _ in range(2))
+    return x, diag, nbr, coef
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-14)])
+def test_cuda_ell_matvec_matches_plain(cuda, dtype, tol):
+    """The ELL SpMV kernel against its plain version, relative to the
+    largest |out|; it launches once per call and raises on operands it does
+    not take."""
+    x, diag, nbr, coef = _ell_operands(cuda, dtype)
+    before = K.launches["ell_matvec"]
+    out = K.ell_matvec(x, diag, nbr, coef)
+    torch.cuda.synchronize()
+    assert K.launches["ell_matvec"] == before + 1
+    ref = K.ell_matvec_plain(x, diag, nbr, coef)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    with pytest.raises(ValueError):
+        K.ell_matvec(x, diag, nbr.long(), coef)          # int64 indices
+    with pytest.raises(ValueError):
+        K.ell_matvec(x, diag, nbr.t(), coef)             # not contiguous
+    with pytest.raises(ValueError):
+        K.ell_matvec(x[:-1], diag, nbr, coef)            # shapes
 
 
 def _mlp_operands(device, wdt, S=8, F=11, hidden=(1600, 800, 400), B=3000,

@@ -1,6 +1,6 @@
 """Solver options of the port's low-Mach step against the JAX package
 (float64, CPU): convection treatments, PIMPLE outer correctors, unity Lewis
-number with gravity. The 2D 9-species hot spot without chemistry, with a
+number with gravity, and the enthalpy frozen (solve_energy off). The 2D 9-species hot spot without chemistry, with a
 Taylor-Green velocity field so that convection matters; one step of 1 us.
 One step, because a second one tests the reference's own conditioning: the
 JAX step alone, given p perturbed by 1e-14, takes 7 more pressure-CG
@@ -26,7 +26,9 @@ MECH = os.path.join(os.path.dirname(__file__), "data", "h2_air_9sp.json")
     dict(mv_convection="upwind"),
     dict(n_outer=2),
     dict(unity_lewis=True, gravity=(0.0, -9.81, 0.0)),
-], ids=["group-min", "upwind", "n_outer2", "unity-lewis-gravity"])
+    dict(solve_energy=False),
+], ids=["group-min", "upwind", "n_outer2", "unity-lewis-gravity",
+        "frozen-energy"])
 def test_low_mach_options_match_jax(opts):
     from __graft_entry__ import _build
     import deepflame_tpu.chemistry as jc
@@ -50,4 +52,7 @@ def test_low_mach_options_match_jax(opts):
                                        chemistry=False, device="cpu")
     solver_t = dataclasses.replace(
         solver_t, config=dataclasses.replace(solver_t.config, **opts))
-    run_both(solver_j, state_j, solver_t, 1e-6, 1)
+    _, state_t = run_both(solver_j, state_j, solver_t, 1e-6, 1)
+    if not solver_t.config.solve_energy:
+        np.testing.assert_array_equal(state_t.ha.numpy(),
+                                      np.asarray(state_j.ha))

@@ -26,6 +26,7 @@ def test_port_sources_import_no_jax():
     files = _port_files()
     assert len(files) > 15
     assert any(os.sep + "runtime" + os.sep in f for f in files)
+    assert any(f.endswith("low_mach_fl.py") for f in files)
     bad = [f for f in files if _IMPORT.search(open(f).read())]
     assert not bad, bad
 
@@ -39,6 +40,10 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.solvers.low_mach, deepflame_torch.ops.kernels\n"
         "import deepflame_torch.chemistry.dnn, deepflame_torch.combustion\n"
         "import deepflame_torch.runtime.factory, deepflame_torch.runtime.driver\n"
+        "import deepflame_torch.mesh.geometry, deepflame_torch.mesh.facelist\n"
+        "import deepflame_torch.mesh.blockmesh, deepflame_torch.mesh.polymesh\n"
+        "import deepflame_torch.ops.fv_facelist\n"
+        "import deepflame_torch.solvers.low_mach_fl\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('deepflame_tpu')]\n"
@@ -80,6 +85,24 @@ def test_cpu_step_counts_no_launch():
     assert all(v == 0 for v in K.launches.values())
     assert torch.isfinite(state.T).all()
     assert np.isfinite(float(diag["continuity_err"]))
+
+
+def test_cpu_facelist_step_counts_no_launch():
+    """The face-list jet on the CPU takes ell_matvec's plain version: no
+    kernel launch counted; its mesh entry points need a card or the CPU."""
+    from deepflame_torch.cases import jet_blockmesh_dict, jet_flame_3d_les_fl
+    from deepflame_torch.mesh import build_blockmesh, parse_blockmesh_dict
+    from deepflame_torch.ops import kernels as K
+    gm = build_blockmesh(parse_blockmesh_dict(jet_blockmesh_dict(2)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            gm.with_bcs({n: None for n in gm.patch_names})
+    solver, state = jet_flame_3d_les_fl(MECH, n=2, dtype=torch.float64,
+                                        device="cpu")
+    K.reset_launches()
+    state, diag = solver.step(state, 5e-7)
+    assert all(v == 0 for v in K.launches.values())
+    assert torch.isfinite(state.T).all() and int(diag["iters_p"]) > 0
 
 
 def test_cpu_dnn_step_counts_no_launch():
