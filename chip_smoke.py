@@ -12,7 +12,9 @@ toolkit (nvcc). In order:
    shapes of the main paths, and takes the device time of the kernel, the
    plain version and (where one PyTorch call computes the same function) the
    library call from torch.profiler, and the kernel wrapper's wall time per
-   call with CUDA events; the fused MLP in bf16, f32 and f64;
+   call with CUDA events; the fused MLP in bf16, f32 and f64; the
+   Gauss-Jordan inverse also at the lane counts the chemistry launches it
+   with;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case and the face-list jet;
@@ -74,17 +76,30 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 
 def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
-              kernel: str | None = None, attempts: int = 3) -> float:
-    """Device time per call of fn(*args): the summed durations of the device
+              kernel: str | None = None, attempts: int = 3,
+              ops_per_call: int | None = None) -> float:
+    """Device time per call of fn(*args) (see device_profile)."""
+    return device_profile(torch, fn, arg_sets, reps, warm, kernel, attempts,
+                          ops_per_call)[0]
+
+
+def device_profile(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
+                   kernel: str | None = None, attempts: int = 3,
+                   ops_per_call: int | None = None) -> tuple[float, int]:
+    """(device ms per call, device operations recorded in the window) of
+    fn(*args). The time is the summed durations of the device
     operations that `reps` calls launch, as torch.profiler records them
     (host dispatch and the gaps between operations are not counted). The
     calls cycle through arg_sets, more than the 50 MB L2 cache together, so
     each call reads cold inputs. With `kernel` given, every device operation
     recorded must be that kernel, and the time is the mean over the launches
     recorded (the profiler has been seen to drop one record of twenty long
-    launches). A profiled window that records no device operation, or the
-    wrong kernel count, is profiled again, up to `attempts` windows in all:
-    the profiler has been seen to return a window with no device record."""
+    launches). With `ops_per_call` given as well, the check is strict: the
+    window must hold exactly reps x ops_per_call device operations, all
+    named `kernel`, and the time is their sum over `reps`. A profiled window
+    that records no device operation, or the wrong kernel count, is profiled
+    again, up to `attempts` windows in all: the profiler has been seen to
+    return a window with no device record."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warm):
@@ -100,8 +115,11 @@ def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
                if e.device_type == torch.autograd.DeviceType.CUDA]
         named = (len(dev) if kernel is None
                  else sum(kernel in e.name for e in dev))
-        ok = bool(dev) and (kernel is None or (
-            named == len(dev) and reps - 1 <= named <= reps))
+        if ops_per_call is None:
+            ok = bool(dev) and (kernel is None or (
+                named == len(dev) and reps - 1 <= named <= reps))
+        else:
+            ok = named == len(dev) == reps * ops_per_call
         if ok:
             break
         print(f"profiled window {attempt + 1} of {attempts}: {len(dev)} "
@@ -110,7 +128,8 @@ def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
     check(ok, f"{kernel}: {named} of {len(dev)} device operations for {reps} "
               f"calls")
     return sum(e.time_range.elapsed_us() for e in dev) / (
-        named if kernel is not None else reps) / 1e3
+        named if kernel is not None and ops_per_call is None else reps
+    ) / 1e3, len(dev)
 
 
 def call_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3) -> float:
@@ -130,15 +149,22 @@ def call_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3) -> float:
 
 
 def timings(torch, kernel_fn, kernel: str, plain_fn, sets, plain_reps: int = 20,
-            library_fn=None, library_sets=None, reps: int = 20) -> dict:
+            library_fn=None, library_sets=None, reps: int = 20,
+            ops_per_call: int | None = None) -> dict:
     """Device ms of the kernel, its plain version and the library call, and
-    the kernel wrapper's wall ms per call."""
-    return dict(
-        ms=device_ms(torch, kernel_fn, sets, reps=reps, kernel=kernel),
-        call_ms=call_ms(torch, kernel_fn, sets, reps=reps),
+    the kernel wrapper's wall ms per call. With `ops_per_call` (see
+    device_profile) also the device operations per call that the kernel's
+    profiled window recorded, as `cuda_launches_per_call`."""
+    ms, records = device_profile(torch, kernel_fn, sets, reps=reps,
+                                 kernel=kernel, ops_per_call=ops_per_call)
+    out = dict(
+        ms=ms, call_ms=call_ms(torch, kernel_fn, sets, reps=reps),
         plain_ms=device_ms(torch, plain_fn, sets, reps=plain_reps),
         library_ms=(None if library_fn is None
                     else device_ms(torch, library_fn, library_sets)))
+    if ops_per_call is not None:
+        out["cuda_launches_per_call"] = records / reps
+    return out
 
 
 def max_rel_err(torch, a, b) -> tuple[float, float]:
@@ -255,6 +281,7 @@ def phase_kernels(torch, K, jet_conn) -> dict:
         else:
             print("gj_inverse f64 figures (bound: bytes only): "
                   + json.dumps(figures))
+    out["gj_inverse"]["path_shapes"] = _gj_path_shapes(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
     out["ell_matvec"] = _ell_figures(torch, K, g, jet_conn)
     for name, f in out.items():
@@ -265,10 +292,39 @@ def phase_kernels(torch, K, jet_conn) -> dict:
     return out
 
 
+def _gj_path_shapes(torch, K, g) -> list:
+    """gj_inverse f32, n = 10, at the lane counts the chemistry launches it
+    with: a bin and the cold slab of the jet (4,096 and 32,768 lanes) and of
+    the TGV (6,912 and 55,296), W = I + 0.1 N(0, 1) as above, tolerance 1e-4
+    of the largest entry. The six input sets lie in the L2 cache together at
+    these sizes, as the integrator's freshly made matrices would."""
+    nn, rows = 10, []
+    for L in (4096, 6912, 32768, 55296):
+        sets = [((torch.eye(nn, device="cuda", dtype=torch.float64)[:, :, None]
+                  + 0.1 * torch.randn((nn, nn, L), generator=g, device="cuda",
+                                      dtype=torch.float64)).float(),)
+                for _ in range(6)]
+        err, rel = max_rel_err(torch, K.gj_inverse(*sets[0]),
+                               K.gj_inverse_plain(*sets[0]))
+        check(rel <= 1e-4, f"gj_inverse L={L} disagrees with its plain version")
+        b_ms, b_by = bound_ms(2 * nn * nn * L * 4,
+                              (2 * nn ** 3 + 3 * nn ** 2) * L)
+        rows.append(dict(
+            L=L, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(torch, K.gj_inverse, "gj_inverse_kernel",
+                      K.gj_inverse_plain, sets, plain_reps=5,
+                      library_fn=torch.linalg.inv,
+                      library_sets=[(W.permute(2, 0, 1).contiguous(),)
+                                    for (W,) in sets])))
+        print(f"gj_inverse n={nn} L={L} f32: " + json.dumps(rows[-1]))
+    return rows
+
+
 def _mlp_operands(torch, g, wdt, B, S=8, F=11, hidden=(1600, 800, 400)):
     """Operands of mlp_fused at the DNN path's widths: He-scaled normal
     weights (the first layer padded with zero rows to 16, as DFODENet
-    stacks it), small biases, x of unit scale."""
+    stacks it), small biases, x of unit scale. The weights are row-major;
+    the kernel takes them through mlp_pack."""
     dev = "cuda"
     xdt = torch.float32 if wdt == torch.bfloat16 else wdt
     sizes = (F,) + hidden + (1,)
@@ -302,7 +358,13 @@ def _mlp_figures(torch, K, g) -> dict:
     f64 1e-12. No single PyTorch call computes the four-layer MLP, so the
     library time is null; the cuBLAS chain (four torch.baddbmm and three
     F.gelu in bf16, 2^17 lanes at a time) is printed as a yardstick. The
-    port never calls it."""
+    port never calls it. The bf16 kernel makes four CUDA launches per chunk
+    of lanes, as many as its library's plan (mlp_plan) says: its device time
+    sums all of them, and every record of the profiled window must be one of
+    its kernels, none missing. Its row adds the launches per call that the
+    window recorded, the scratch bytes the call held beyond its result (the
+    allocator's peak during one call less what stays allocated after it),
+    TFLOP/s and its share of the bound."""
     import torch.nn.functional as F_nn
 
     chunk = 1 << 17
@@ -310,8 +372,9 @@ def _mlp_figures(torch, K, g) -> dict:
     for wdt, B, tol, name in ((torch.bfloat16, N_MAIN ** 3, 2e-3, "bf16"),
                               (torch.float32, 1 << 14, 1e-5, "f32"),
                               (torch.float64, 1 << 12, 1e-12, "f64")):
-        sets = [_mlp_operands(torch, g, wdt, B)]
-        x, Ws, bs = sets[0]
+        x, Ws, bs = _mlp_operands(torch, g, wdt, B)
+        Ws = K.mlp_pack(Ws)
+        sets = [(x, Ws, bs)]
         sets.append((torch.randn(x.shape, generator=g, device="cuda").to(
             x.dtype), Ws, bs))
         plain = lambda x_, W_, b_: K.mlp_fused_plain(x_, W_, b_, chunk=chunk)
@@ -328,12 +391,37 @@ def _mlp_figures(torch, K, g) -> dict:
             b_ms, b_by = bound_ms(n_bytes, flops)
         else:   # bounded here by its bytes alone (no float64 peak is used)
             b_ms, b_by = bound_ms(n_bytes, 0.0)
+        bf16 = wdt == torch.bfloat16
+        n_launch = None
+        if bf16:
+            S, K1, H1 = Ws[0].shape
+            plan = K.mlp_plan(B, S, K1, H1, Ws[1].shape[2], Ws[2].shape[2])
+            n_launch = plan[1]
+            print(f"mlp_fused bf16 plan of its library: chunk {plan[0]} "
+                  f"lanes, {plan[1]} CUDA launches, {plan[2]} bytes of "
+                  f"scratch")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            y = K.mlp_fused(x, Ws, bs)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            scratch = torch.cuda.max_memory_allocated() - held
+            check(held - before >= y.numel() * 4 and scratch >= plan[2],
+                  f"mlp_fused bf16 held {scratch} bytes beyond its result, "
+                  f"the plan needs {plan[2]}")
+            del y
         rows[name] = dict(
             route="cuda", source="deepflame_torch/csrc/mlp_fused.cu",
             replaces=f"{PALLAS}:69 (mlp_fused_lanes)", max_abs_err=err,
             **timings(torch, K.mlp_fused, "mlp_fused_", plain, sets,
-                      plain_reps=2, reps=5 if name == "bf16" else 20),
+                      plain_reps=2, reps=5 if bf16 else 20,
+                      ops_per_call=n_launch),
             bound_ms=b_ms, bound_by=b_by, shape=[B, 8, 11], dtype=name)
+        if bf16:
+            ms = rows[name]["ms"]
+            rows[name].update(scratch_bytes=scratch, tflops=flops / ms / 1e9,
+                              bound_share=b_ms / ms)
     # the cuBLAS chain on the bf16 operands
     x, Ws, bs = _mlp_operands(torch, g, torch.bfloat16, N_MAIN ** 3)
     xs = [torch.nn.functional.pad(x[i:i + chunk], (0, 5)).to(torch.bfloat16)

@@ -8,9 +8,10 @@ inert species held fixed and the rest renormalized).
 
 The (ns - 1) per-species nets of equal shape run fused: their weights are
 stacked (S, in, out) once, when the `DFODENet` is built, with the first
-layer's input dimension padded with zero rows to a multiple of 16 (the
-tensor cores' depth). A four-layer fused net goes through
-`ops.kernels.mlp_fused` (one launch on the card, its plain version on the
+layer's input dimension padded with zero rows to a multiple of 16, and put
+into the kernel's layout (`ops.kernels.mlp_pack`: bf16 layers 1 to 3 stored
+K-major) once per compute type. A four-layer fused net goes through
+`ops.kernels.mlp_fused` (one wrapper call on the card, its plain version on the
 CPU); nets of another depth take the plain version, and `fuse=False` the
 per-species loop, as in the JAX package. With bf16 compute, both round where
 the TPU kernel does (operands and each hidden activation in bf16, sums, bias
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.kernels import mlp_fused, mlp_fused_plain
+from ..ops.kernels import mlp_fused, mlp_fused_plain, mlp_pack
 
 __all__ = ["DFODENet", "MultiRangeDFODENet", "init_params", "mlp_apply",
            "load_torch_checkpoint", "load_npz_checkpoint", "bct", "inv_bct",
@@ -121,20 +122,21 @@ class DFODENet(nn.Module):
                 self._weights(compute_dtype)
 
     def _weights(self, cd: torch.dtype):
-        """Stacked weights in `cd` and biases in the matching input type
-        (float32 beside bf16 weights), made once per type."""
+        """Stacked weights in `cd`, in the kernel's layout (`mlp_pack`),
+        and biases in the matching input type (float32 beside bf16 weights),
+        made once per type."""
         if cd not in self._cast:
             bdt = torch.float32 if cd == torch.bfloat16 else cd
             self._cast[cd] = (
-                [getattr(self, f"W{l}").to(cd).contiguous()
-                 for l in range(self.n_layers)],
+                mlp_pack([getattr(self, f"W{l}").to(cd)
+                          for l in range(self.n_layers)]),
                 [getattr(self, f"b{l}").to(bdt).contiguous()
                  for l in range(self.n_layers)])
         return self._cast[cd]
 
     def _fused_mlp(self, x):
         """(..., F) -> (..., S) through the stacked weights. Four-layer nets
-        go through `mlp_fused` (one kernel launch on the card); other depths
+        go through `mlp_fused` (one wrapper call on the card); other depths
         through its plain version, which takes any depth. Both compute in
         compute_dtype, or in x's type when it is None, `chunk` lanes at a
         time on the CPU."""

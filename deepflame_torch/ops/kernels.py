@@ -14,7 +14,10 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 `gj_inverse`           `gj_inverse_lanes`: Rosenbrock W inverse of the stiff
                        chemistry
 `mlp_fused`            `mlp_fused_lanes`: the DF-ODENet MLPs of the DNN
-                       chemistry (bf16 tensor cores, or f32/f64 FMA)
+                       chemistry (bf16: four kernels per chunk of lanes,
+                       layer 1 on mma.sync, layers 2 and 3 in a persistent
+                       TMA-fed wgmma GEMM whose epilogue warps apply
+                       bias+GELU; or f32/f64 FMA, one kernel)
 `ell_matvec`           `ell_matvec`: the pressure-CG matvec of the face-list
                        step on a general (blockMesh, polyMesh) mesh
 =====================  =====================================================
@@ -22,7 +25,9 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
 (the tests) and launches its kernel for CUDA tensors, raising on anything the
 kernel does not take; it never falls back from kernel to plain on the card.
-Each launch adds one to `launches[name]`.
+Each wrapper call that launches adds one to `launches[name]` (the bf16
+`mlp_fused` call makes four CUDA launches per chunk of lanes in one C call;
+`mlp_plan` asks the library for its chunks, launches and scratch).
 
 Build: at first use, `build()` runs one `nvcc` per source, all at once,
 into a plain-C-ABI shared library under `<repo>/build/kernels/`, named by a
@@ -45,7 +50,8 @@ import torch.nn.functional as F_nn
 
 __all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse", "mlp_fused",
            "stencil_apply_plain", "helmholtz_apply_plain", "gj_inverse_plain",
-           "mlp_fused_plain", "ell_matvec", "ell_matvec_plain", "launches", "reset_launches", "build",
+           "mlp_fused_plain", "mlp_pack", "mlp_plan", "ell_matvec",
+           "ell_matvec_plain", "launches", "reset_launches", "build",
            "find_nvcc", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -54,12 +60,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-# source file and C argument types (the stream pointer last) of each kernel
+# source file and C argument types (the stream pointer last) of each kernel,
+# per entry point `<name>_<suffix>` where a source has several (a mode each,
+# and the bf16 MLP's plan query, which takes no stream)
 _KERNELS = {
     "stencil7_apply": ("stencil7.cu", [_P] * 9 + [_L, _I, _I, _I, _P]),
     "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
     "gj_inverse": ("gj_inverse.cu", [_P, _P, _I, _L, _P]),
-    "mlp_fused": ("mlp_fused.cu", [_P] * 10 + [_I] * 7 + [_P]),
+    "mlp_fused": ("mlp_fused.cu", {"bf16": [_P] * 11 + [_L] + [_I] * 7 + [_P],
+                                   "bf16_plan": [_L] + [_I] * 5 + [_P] * 3,
+                                   "f32": [_P] * 10 + [_I] * 7 + [_P],
+                                   "f64": [_P] * 10 + [_I] * 7 + [_P]}),
     "ell_matvec": ("ell_matvec.cu", [_P] * 5 + [_L, _I, _P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
@@ -122,15 +133,17 @@ def build() -> dict[str, str]:
     return logs
 
 
-def _function(name: str, dtype: torch.dtype):
+def _function(name: str, suffix: str):
+    """The C entry point `<name>_<suffix>` of a kernel's library."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not _so_path(name).exists():
                 build()
             lib = _libs[name] = ctypes.CDLL(str(_so_path(name)))
-    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = _KERNELS[name][1]
+    fn = getattr(lib, f"{name}_{suffix}")
+    argtypes = _KERNELS[name][1]
+    fn.argtypes = argtypes[suffix] if isinstance(argtypes, dict) else argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -155,7 +168,7 @@ def _check(name: str, tensors, dtypes=None) -> None:
 
 def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _function(name, dtype)(*args, stream)
+    err = _function(name, _SUFFIX[dtype])(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[name] += 1
@@ -295,17 +308,48 @@ def gj_inverse(W_t):
 
 # ------------------------------------------------------- fused DF-ODENet MLP
 
-# lanes per block of each mode (csrc/mlp_fused.cu), keyed by the weights' type
-_MLP_LANES = {torch.bfloat16: 32, torch.float32: 16, torch.float64: 8}
+# lanes per block of the CUDA-core modes (csrc/mlp_fused.cu)
+_MLP_LANES = {torch.float32: 16, torch.float64: 8}
 _SMEM_LIMIT = 232_448            # bytes of shared memory a block may use, sm_90
 
 
-def _mlp_smem(wdt, F, K1, H1, H2, H3) -> int:
-    """Shared-memory bytes of one block (csrc/mlp_fused.cu)."""
-    lanes = _MLP_LANES[wdt]
-    if wdt == torch.bfloat16:
-        return lanes * (max(H1, H3) + max(H2, K1) + 16) * 2 + 8 * 256 * 4
-    return lanes * (max(H1, H3) + max(H2, F)) * wdt.itemsize
+def _mlp_smem(wdt, F, H1, H2, H3) -> int:
+    """Shared-memory bytes of one block of the CUDA-core modes
+    (csrc/mlp_fused.cu)."""
+    return _MLP_LANES[wdt] * (max(H1, H3) + max(H2, F)) * wdt.itemsize
+
+
+def mlp_plan(B: int, S: int, K1: int, H1: int, H2: int,
+             H3: int) -> tuple[int, int, int]:
+    """The bf16 kernel's walk over B lanes, as the kernel's library decides
+    it: (lanes per chunk, CUDA launches per call, bytes of scratch). Raises
+    ValueError for widths the bf16 kernel does not take. Needs the built
+    library (nvcc), so only where the kernels run."""
+    chunk, n, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = _function("mlp_fused", "bf16_plan")(
+        B, S, K1, H1, H2, H3, ctypes.byref(chunk), ctypes.byref(n),
+        ctypes.byref(nbytes))
+    if err != 0:
+        raise ValueError(f"mlp_fused: the bf16 kernel takes K1, H1, H2 and H3 "
+                         f"multiples of 16, got {(K1, H1, H2, H3)} "
+                         f"(S = {S}, B = {B})")
+    return chunk.value, n.value, nbytes.value
+
+
+def mlp_pack(Ws):
+    """The weights in the layout the kernel of their type reads, made once by
+    the caller: bf16 keeps the logical shapes (S, in, out) but stores layers
+    1 to 3 K-major (each W[s].T contiguous; the tensors are transposed views
+    of that storage), the tensor cores' B operands; other types are made
+    contiguous."""
+    if Ws[0].dtype != torch.bfloat16 or len(Ws) != 4:
+        return [W.contiguous() for W in Ws]
+    return [*(W.transpose(1, 2).contiguous().transpose(1, 2) for W in Ws[:3]),
+            Ws[3].contiguous()]
+
+
+def _k_major(W) -> bool:
+    return W.dim() == 3 and W.transpose(1, 2).is_contiguous()
 
 
 def mlp_fused_plain(x, Ws, bs, chunk: int | None = None):
@@ -315,8 +359,8 @@ def mlp_fused_plain(x, Ws, bs, chunk: int | None = None):
     used. With bf16 weights it rounds where the kernel does: x and W to bf16,
     products summed in f32, bias and GELU in f32, each hidden activation
     rounded to bf16; x and the result are f32. Otherwise everything is in x's
-    type. `chunk` lanes go through at a time, bounding the (S, chunk, H1)
-    activations."""
+    type. Any strides (`mlp_pack`'s layout too). `chunk` lanes go through at
+    a time, bounding the (S, chunk, H1) activations."""
     B, F = x.shape
     if chunk is not None and B > chunk:
         return torch.cat([mlp_fused_plain(x[i:i + chunk], Ws, bs)
@@ -335,26 +379,38 @@ def mlp_fused_plain(x, Ws, bs, chunk: int | None = None):
 
 
 def mlp_fused(x, Ws, bs, chunk: int | None = None):
-    """S stacked four-layer GELU MLPs F -> H1 -> H2 -> H3 -> 1, all in one
-    launch with the hidden activations on chip: x (B, F) -> (B, S).
+    """S stacked four-layer GELU MLPs F -> H1 -> H2 -> H3 -> 1: x (B, F) ->
+    (B, S), one wrapper call.
 
     Ws: [(S, K1, H1), (S, H1, H2), (S, H2, H3), (S, H3, 1)], K1 >= F (rows
-    past F are zero padding); bs: [(S, H1), (S, H2), (S, H3), (S, 1)]. The
-    weights' type picks the mode: bfloat16 (tensor cores; x and biases
-    float32, K1 and the hidden widths multiples of 16), float32 or float64
-    (x, biases and weights all of that type). `chunk` only bounds the plain
-    version's activations on the CPU."""
+    past F are zero padding), in `mlp_pack`'s layout; bs: [(S, H1), (S, H2),
+    (S, H3), (S, 1)]. The weights' type picks the mode:
+    - bfloat16: x and biases float32; layers 1 to 3 on the tensor cores,
+      the hidden activations through bf16 scratch in device memory, lanes in
+      `mlp_plan`'s chunks (four launches each). Widths: K1, H1, H2 and H3
+      multiples of 16.
+    - float32 or float64: x, biases and weights all of that type; one launch,
+      activations in shared memory.
+    `chunk` only bounds the plain version's activations on the CPU."""
     if x.device.type == "cpu":
         return mlp_fused_plain(x, Ws, bs, chunk)
     wdt = Ws[0].dtype
-    if wdt not in _MLP_LANES:
+    bf16 = wdt == torch.bfloat16
+    if wdt not in _SUFFIX:
         raise TypeError(f"mlp_fused: weights must be bfloat16, float32 or "
                         f"float64, got {wdt}")
-    xdt = torch.float32 if wdt == torch.bfloat16 else wdt
+    xdt = torch.float32 if bf16 else wdt
     if len(Ws) != 4 or len(bs) != 4:
         raise ValueError("mlp_fused: takes exactly four layers")
+    if bf16 and not all(_k_major(W) for W in Ws[:3]):
+        raise ValueError("mlp_fused: bf16 layers 1 to 3 must be stored "
+                         "K-major (pack the weights with mlp_pack)")
     ops = [x] + [t for Wb in zip(Ws, bs) for t in Wb]
-    _check("mlp_fused", ops, [xdt] + [wdt, xdt] * 4)
+    # the K-major layers are contiguous as their transposes
+    storage = [W.transpose(1, 2) if bf16 and i < 3 else W
+               for i, W in enumerate(Ws)]
+    _check("mlp_fused", [x] + [t for Wb in zip(storage, bs) for t in Wb],
+           [xdt] + [wdt, xdt] * 4)
     if x.dim() != 2 or any(W.dim() != 3 for W in Ws):
         raise ValueError("mlp_fused: x must be (B, F) and each W (S, in, out)")
     B, F = x.shape
@@ -366,18 +422,22 @@ def mlp_fused(x, Ws, bs, chunk: int | None = None):
         raise ValueError(f"mlp_fused: shapes x {tuple(x.shape)}, W "
                          f"{[tuple(W.shape) for W in Ws]}, b "
                          f"{[tuple(b.shape) for b in bs]} do not chain")
-    if wdt == torch.bfloat16 and any(d % 16 for d in (K1, H1, H2, H3)):
-        raise ValueError(f"mlp_fused: bf16 needs K1 and the hidden widths in "
-                         f"multiples of 16, got {(K1, H1, H2, H3)}")
-    smem = _mlp_smem(wdt, F, K1, H1, H2, H3)
-    if smem > _SMEM_LIMIT:
+    if bf16:
+        _, _, n_scratch = mlp_plan(B, S, K1, H1, H2, H3)
+    elif (smem := _mlp_smem(wdt, F, H1, H2, H3)) > _SMEM_LIMIT:
         raise ValueError(f"mlp_fused: widths {(F, H1, H2, H3)} need {smem} "
                          f"bytes of shared memory in {wdt}, over {_SMEM_LIMIT}")
     out = torch.empty((B, S), dtype=xdt, device=x.device)
     if B == 0:
         return out
-    _launch("mlp_fused", wdt, x.device, *[t.data_ptr() for t in ops],
-            out.data_ptr(), B, F, K1, H1, H2, H3, S)
+    ptrs = [t.data_ptr() for t in ops]
+    if not bf16:
+        _launch("mlp_fused", wdt, x.device, *ptrs, out.data_ptr(), B, F, K1,
+                H1, H2, H3, S)
+        return out
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
+    _launch("mlp_fused", wdt, x.device, *ptrs, out.data_ptr(),
+            scratch.data_ptr(), n_scratch, B, F, K1, H1, H2, H3, S)
     return out
 
 

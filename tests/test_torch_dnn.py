@@ -83,16 +83,18 @@ def _rel(a, b):
 
 # ------------------------------------------------------- the fused kernel
 
-@pytest.mark.parametrize("S,F", [(8, 11), (20, 23)])
+@pytest.mark.parametrize("S,F", [(8, 11), (20, 23), (4, 67)])
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 def test_mlp_fused_plain_matches_pallas(S, F, mode):
     """mlp_fused (CPU: its plain version) against mlp_fused_lanes in
-    interpret mode, at H2_Li's shape (S = 8, F = 11) and drm19's (S = 20,
-    F = 23), hidden (64, 32, 16). f32: 2e-5, the Pallas test's own
+    interpret mode, at H2_Li's shape (S = 8, F = 11), drm19's (S = 20,
+    F = 23) and a 65-species mechanism's input width (F = 67, padded to
+    K1 = 80; 4 of its nets), hidden (64, 32, 16). f32: 2e-5, the Pallas test's own
     tolerance (the Pallas erf polynomial is within 1.5e-7). bf16: 2e-3 of the
     largest |out|; both round x, W and each activation to bf16 at the same
     places, and a sum taken in another order can move a rounding by one bf16
-    step (2^-8)."""
+    step (2^-8). The port's weights go in through `mlp_pack`, the layout
+    DFODENet hands the kernel (bf16 layers 1 to 3 K-major)."""
     rng = np.random.default_rng(11)
     B = 512
     sizes = (F,) + HIDDEN + (1,)
@@ -108,8 +110,11 @@ def test_mlp_fused_plain_matches_pallas(S, F, mode):
     wdt = torch.bfloat16 if mode == "bf16" else torch.float32
     # the port's stacked first layer carries zero rows up to a multiple of 16
     pad = (-F) % 16
-    Wt = [torch.as_tensor(np.pad(W, ((0, 0), (0, pad), (0, 0))) if i == 0
-                          else W).to(wdt) for i, W in enumerate(Ws)]
+    Wt = K.mlp_pack([torch.as_tensor(np.pad(W, ((0, 0), (0, pad), (0, 0)))
+                                     if i == 0 else W).to(wdt)
+                     for i, W in enumerate(Ws)])
+    assert all(Wt[i].transpose(1, 2).is_contiguous() == (mode == "bf16")
+               for i in range(3))
     K.reset_launches()
     out = K.mlp_fused(torch.as_tensor(x), Wt, list(map(torch.as_tensor, bs)))
     assert all(v == 0 for v in K.launches.values())
@@ -168,7 +173,8 @@ def test_dfodenet_rates_match_jax(fuse, hidden):
 
 def test_dfodenet_stacks_weights_once():
     """The fused net holds stacked, K-padded weights as buffers, and the
-    compute-type copy is made when the net is built."""
+    compute-type copy, in the kernel's layout (bf16 layers 1 to 3 K-major),
+    is made when the net is built."""
     nets = _nets(4)
     net = _port_net(nets, compute_dtype=torch.bfloat16)
     names = dict(net.named_buffers())
@@ -178,6 +184,9 @@ def test_dfodenet_stacks_weights_once():
     Ws, bs = net._weights(torch.bfloat16)
     assert Ws[0].dtype == torch.bfloat16 and bs[0].dtype == torch.float32
     assert net._weights(torch.bfloat16)[0][1] is Ws[1]
+    assert all(Ws[i].transpose(1, 2).is_contiguous()
+               and torch.equal(Ws[i], names[f"W{i}"].to(torch.bfloat16))
+               for i in range(3))
 
 
 def test_multi_range_matches_jax():

@@ -251,25 +251,89 @@ def _mlp_operands(device, wdt, S=8, F=11, hidden=(1600, 800, 400), B=3000,
     return x.to(xdt), Ws, bs
 
 
+# lanes of one bf16 wrapper chunk at S = 8 (test_cuda_mlp_plan checks it)
+_CHUNK8 = 65536
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("wdt,tol", [(torch.bfloat16, 2e-3),
-                                     (torch.float32, 1e-5),
-                                     (torch.float64, 1e-12)])
-def test_cuda_mlp_fused_matches_plain(cuda, wdt, tol):
-    """The fused MLP kernel at full widths against its plain version on the
-    card, relative to the largest |out|: bf16 2e-3 (a sum in another order
-    can move one bf16 rounding of an activation), f32 1e-5, f64 1e-12."""
-    x, Ws, bs = _mlp_operands(cuda, wdt)
+def test_cuda_mlp_plan_chunks_and_scratch(cuda):
+    """The bf16 kernel's walk over the lanes, as its library plans it:
+    chunks of 2^19 / S lanes cut to the 128-lane tile, fewer when B is
+    small; four launches a chunk; bf16 h1 and h2 and f32 layer-4 partials
+    (one per 40 columns, a ragged last one included) for one chunk. Widths
+    that are not multiples of 16 raise."""
+    per_lane = 2400 * 2 + 10 * 4
+    args = (8, 16, 1600, 800, 400)
+    assert K.mlp_plan(1 << 30, *args)[0] == _CHUNK8
+    assert K.mlp_plan(884_736, *args) == (65536, 4 * 14, 8 * 65536 * per_lane)
+    assert K.mlp_plan(_CHUNK8 + 37, *args)[:2] == (65536, 8)
+    chunk, n, scratch = K.mlp_plan(10 ** 6, 20, 32, 1600, 800, 400)
+    assert (chunk, n) == (26112, 4 * 39) and chunk % 128 == 0
+    assert scratch == 20 * 26112 * per_lane <= 2.6e9
+    assert K.mlp_plan(5, *args) == (128, 4, 8 * 128 * per_lane)
+    assert K.mlp_plan(0, *args)[1] == 0
+    # H3 = 48: two partial sums a lane, the second over 8 columns
+    assert K.mlp_plan(5, 1, 16, 64, 32, 48) == (128, 4,
+                                                 128 * (96 * 2 + 2 * 4))
+    for widths in ((16, 1600, 800, 420), (8, 1600, 800, 400)):
+        with pytest.raises(ValueError):
+            K.mlp_plan(5, 8, *widths)
+
+
+def test_mlp_pack_layout():
+    """bf16 layers 1 to 3 keep their (S, in, out) shapes and values over
+    K-major storage; float32 weights stay row-major."""
+    g = torch.Generator().manual_seed(0)
+    Ws = [torch.randn(s, generator=g).to(torch.bfloat16)
+          for s in ((3, 16, 32), (3, 32, 48), (3, 48, 8), (3, 8, 1))]
+    packed = K.mlp_pack(Ws)
+    for i, (W, P) in enumerate(zip(Ws, packed)):
+        assert P.shape == W.shape and torch.equal(P, W)
+        assert P.is_contiguous() == (i == 3)
+        assert i == 3 or P.transpose(1, 2).is_contiguous()
+    assert all(P.is_contiguous() for P in K.mlp_pack([W.float() for W in Ws]))
+
+
+_FULL = (1600, 800, 400)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt,tol,S,F,hidden,B", [
+    (torch.bfloat16, 2e-3, 8, 11, _FULL, 3000),
+    (torch.bfloat16, 2e-3, 8, 11, _FULL, 5),            # under one lane tile
+    (torch.bfloat16, 2e-3, 8, 11, _FULL, _CHUNK8 + 37),  # two chunks, ragged
+    (torch.bfloat16, 2e-3, 20, 23, _FULL, 3000),        # drm19's species count
+    (torch.bfloat16, 2e-3, 8, 11, _FULL, 0),
+    (torch.bfloat16, 2e-3, 8, 11, (64, 32, 16), 3000),  # the CPU tests' widths
+    (torch.bfloat16, 2e-3, 4, 67, _FULL, 3000),         # 65 species: K1 = 80
+    # ragged tiles: H1 % 32 = 16, a second 200-column tile of 8 columns, a
+    # last layer-4 partial of 8 columns
+    (torch.bfloat16, 2e-3, 3, 23, (240, 208, 48), 1000),
+    (torch.float32, 1e-5, 8, 11, _FULL, 3000),
+    (torch.float64, 1e-12, 8, 11, _FULL, 3000)])
+def test_cuda_mlp_fused_matches_plain(cuda, wdt, tol, S, F, hidden, B):
+    """The fused MLP kernel against its plain version on the card, relative
+    to the largest |out|: bf16 2e-3 (a sum in another order can move one
+    bf16 rounding of an activation), f32 1e-5, f64 1e-12. One count per call
+    that launches; B = 0 gives an empty result."""
+    x, Ws, bs = _mlp_operands(cuda, wdt, S=S, F=F, hidden=hidden, B=B)
+    Ws = K.mlp_pack(Ws)
     before = K.launches["mlp_fused"]
     out = K.mlp_fused(x, Ws, bs)
     torch.cuda.synchronize()
-    assert K.launches["mlp_fused"] == before + 1
-    ref = K.mlp_fused_plain(x, Ws, bs)
-    assert out.shape == (3000, 8) and out.dtype == ref.dtype
-    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert K.launches["mlp_fused"] == before + (B > 0)
+    ref = K.mlp_fused_plain(x, Ws, bs, chunk=1 << 15)
+    assert out.shape == (B, S) and out.dtype == ref.dtype
+    if B:
+        assert bool(torch.isfinite(out).all())
+        assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     with pytest.raises(ValueError):
         K.mlp_fused(x, Ws[:3], bs[:3])               # not four layers
     with pytest.raises(ValueError):
         K.mlp_fused(x.double() if wdt != torch.float64 else x.float(), Ws, bs)
-    with pytest.raises(ValueError):                  # too wide for one block
-        K.mlp_fused(*_mlp_operands(cuda, wdt, hidden=(4096, 1024, 16), B=4))
+    with pytest.raises(ValueError):                  # widths it does not take
+        K.mlp_fused(*_mlp_operands(cuda, wdt, B=4, hidden=(
+            (1600, 800, 420) if wdt == torch.bfloat16 else (4096, 1024, 16))))
+    if wdt == torch.bfloat16:
+        with pytest.raises(ValueError):              # not packed K-major
+            K.mlp_fused(x, [W.contiguous() for W in Ws], bs)
