@@ -12,7 +12,8 @@ toolkit (nvcc). In order:
    shapes of the main paths, and takes the device time of the kernel, the
    plain version and (where one PyTorch call computes the same function) the
    library call from torch.profiler, and the kernel wrapper's wall time per
-   call with CUDA events; the fused MLP in bf16, f32 and f64; the
+   call with CUDA events; the fused MLP in bf16 (96^3 lanes), f32 (2^14 and
+   96^3) and f64 (2^12), with its launches per call and scratch; the
    Gauss-Jordan inverse also at the lane counts the chemistry launches it
    with;
 3. checks whole steps on the card against the port's plain CPU path (the
@@ -64,6 +65,12 @@ N_JET, JET_DT = 64, 5e-7       # face-list jet: (2n, n, n) cells; its step [s]
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12    # bf16 on the tensor cores, dense
+FP64_TC_FLOP_PER_S = 67e12     # float64 on the tensor cores
+# mlp_fused at the DNN path's DF-ODENet: widths F -> H1 -> H2 -> H3 -> 1
+MLP_S, MLP_WIDTHS = 8, (11, 1600, 800, 400, 1)
+# per mode: (bytes of a weight, bytes of x, biases and out, peak FLOP/s)
+MLP_MODES = {"bf16": (2, 4, BF16_TC_FLOP_PER_S), "f32": (4, 4, FP32_FLOP_PER_S),
+             "f64": (8, 8, FP64_TC_FLOP_PER_S)}
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -96,10 +103,14 @@ def device_profile(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
     recorded (the profiler has been seen to drop one record of twenty long
     launches). With `ops_per_call` given as well, the check is strict: the
     window must hold exactly reps x ops_per_call device operations, all
-    named `kernel`, and the time is their sum over `reps`. A profiled window
-    that records no device operation, or the wrong kernel count, is profiled
-    again, up to `attempts` windows in all: the profiler has been seen to
-    return a window with no device record."""
+    named `kernel`, and the time is their sum over `reps`. With no `kernel`
+    the window must hold a whole multiple of `reps` operations. A profiled
+    window that records no device operation, or the wrong count, is
+    profiled again, up to `attempts` windows in all: the profiler has been
+    seen to return a window with no device record. Each window opens and closes with
+    a marker kernel (torch.cuda._sleep's spin_kernel) that is neither timed
+    nor counted: the profiler has been seen to lose one record at an edge
+    of a window in every attempt (79 of 80 records)."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warm):
@@ -108,16 +119,22 @@ def device_profile(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for i in range(reps):
                 fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
         named = (len(dev) if kernel is None
                  else sum(kernel in e.name for e in dev))
         if ops_per_call is None:
-            ok = bool(dev) and (kernel is None or (
-                named == len(dev) and reps - 1 <= named <= reps))
+            # without a kernel name, each call's operations must all be
+            # there: a whole multiple of reps
+            ok = bool(dev) and (
+                len(dev) % reps == 0 if kernel is None
+                else named == len(dev) and reps - 1 <= named <= reps)
         else:
             ok = named == len(dev) == reps * ops_per_call
         if ok:
@@ -150,16 +167,17 @@ def call_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3) -> float:
 
 def timings(torch, kernel_fn, kernel: str, plain_fn, sets, plain_reps: int = 20,
             library_fn=None, library_sets=None, reps: int = 20,
-            ops_per_call: int | None = None) -> dict:
+            ops_per_call: int | None = None, warm: int = 3) -> dict:
     """Device ms of the kernel, its plain version and the library call, and
-    the kernel wrapper's wall ms per call. With `ops_per_call` (see
-    device_profile) also the device operations per call that the kernel's
-    profiled window recorded, as `cuda_launches_per_call`."""
-    ms, records = device_profile(torch, kernel_fn, sets, reps=reps,
+    the kernel wrapper's wall ms per call, each after `warm` calls. With
+    `ops_per_call` (see device_profile) also the device operations per call
+    that the kernel's profiled window recorded, as
+    `cuda_launches_per_call`."""
+    ms, records = device_profile(torch, kernel_fn, sets, reps=reps, warm=warm,
                                  kernel=kernel, ops_per_call=ops_per_call)
     out = dict(
-        ms=ms, call_ms=call_ms(torch, kernel_fn, sets, reps=reps),
-        plain_ms=device_ms(torch, plain_fn, sets, reps=plain_reps),
+        ms=ms, call_ms=call_ms(torch, kernel_fn, sets, reps=reps, warm=warm),
+        plain_ms=device_ms(torch, plain_fn, sets, reps=plain_reps, warm=warm),
         library_ms=(None if library_fn is None
                     else device_ms(torch, library_fn, library_sets)))
     if ops_per_call is not None:
@@ -320,108 +338,123 @@ def _gj_path_shapes(torch, K, g) -> list:
     return rows
 
 
-def _mlp_operands(torch, g, wdt, B, S=8, F=11, hidden=(1600, 800, 400)):
+def _mlp_operands(torch, g, wdt, B, S=MLP_S, widths=MLP_WIDTHS):
     """Operands of mlp_fused at the DNN path's widths: He-scaled normal
     weights (the first layer padded with zero rows to 16, as DFODENet
     stacks it), small biases, x of unit scale. The weights are row-major;
     the kernel takes them through mlp_pack."""
     dev = "cuda"
     xdt = torch.float32 if wdt == torch.bfloat16 else wdt
-    sizes = (F,) + hidden + (1,)
     Ws, bs = [], []
-    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+    for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
         W = torch.randn((S, a, b), generator=g, device=dev) * (2.0 / a) ** 0.5
         if i == 0:
             W = torch.nn.functional.pad(W, (0, 0, 0, (-a) % 16))
         Ws.append(W.to(wdt).contiguous())
         bs.append((0.1 * torch.randn((S, b), generator=g, device=dev)).to(xdt))
-    x = torch.randn((B, F), generator=g, device=dev).to(xdt)
+    x = torch.randn((B, widths[0]), generator=g, device=dev).to(xdt)
     return x, Ws, bs
 
 
-def _mlp_work(B, S, F, Ws, wsize, xsize) -> tuple[float, float]:
-    """(bytes, operations) of one call: x, weights, biases and out once;
-    two operations per multiply-add of the four layers (unpadded)."""
-    widths = [F] + [W.shape[2] for W in Ws]
+def _mlp_work(B, S, widths, wsize, xsize) -> tuple[float, float]:
+    """(bytes, operations) of one call through widths F -> ... -> 1: x,
+    weights, biases and out once; two operations per multiply-add of the
+    four layers (unpadded)."""
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    n_bytes = (B * F * xsize + S * macs * wsize + S * sum(widths[1:]) * xsize
-               + B * S * xsize)
+    n_bytes = (B * widths[0] * xsize + S * macs * wsize
+               + S * sum(widths[1:]) * xsize + B * S * xsize)
     return n_bytes, 2.0 * B * S * macs
 
 
+def mlp_bound(mode: str, B: int, S: int = MLP_S,
+              widths=MLP_WIDTHS) -> tuple[float, float, float, str]:
+    """(bytes, operations, bound ms, what binds) of one mlp_fused call in
+    mode bf16, f32 or f64: the operations at the peak of the units that do
+    them (bf16 and f64 tensor cores, f32 CUDA cores)."""
+    wsize, xsize, rate = MLP_MODES[mode]
+    n_bytes, flops = _mlp_work(B, S, widths, wsize, xsize)
+    return (n_bytes, flops) + bound_ms(n_bytes, flops, rate)
+
+
+def _mlp_row(torch, K, g, wdt, B, tol, reps, warm, chunk,
+             plain_reps) -> dict:
+    """One mode of mlp_fused against its plain version (`chunk` lanes at a
+    time) at B lanes of the DNN path's widths: agreement, the plan of the
+    kernel's library, the scratch bytes the call held beyond its result
+    (the allocator's peak during one call less what stays allocated after
+    it), device ms summed over all the call's CUDA launches (every record of
+    the profiled window must be one of its kernels, as many as the plan
+    says, none missing), the launches per call that window recorded,
+    TFLOP/s and the share of the bound."""
+    name = {torch.bfloat16: "bf16", torch.float32: "f32",
+            torch.float64: "f64"}[wdt]
+    x, Ws, bs = _mlp_operands(torch, g, wdt, B)
+    Ws = K.mlp_pack(Ws)
+    sets = [(x, Ws, bs), (torch.randn(x.shape, generator=g, device="cuda").to(
+        x.dtype), Ws, bs)]
+    plain = lambda x_, W_, b_: K.mlp_fused_plain(x_, W_, b_, chunk=chunk)
+    S, K1, H1 = Ws[0].shape
+    plan = K.mlp_plan(wdt, B, S, K1, H1, Ws[1].shape[2], Ws[2].shape[2])
+    print(f"mlp_fused {name} B={B} plan of its library: chunk {plan[0]} "
+          f"lanes, {plan[1]} CUDA launches, {plan[2]} bytes of scratch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    y = K.mlp_fused(x, Ws, bs)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    scratch = torch.cuda.max_memory_allocated() - held
+    check(held - before >= y.numel() * y.element_size()
+          and scratch >= plan[2],
+          f"mlp_fused {name} held {scratch} bytes beyond its result, the "
+          f"plan needs {plan[2]}")
+    err, rel = max_rel_err(torch, y, plain(x, Ws, bs))
+    del y
+    print(f"mlp_fused {name} B={B} S={S} widths "
+          f"{'-'.join(map(str, MLP_WIDTHS))}: max abs err {err:.3e}, rel "
+          f"{rel:.3e} (tolerance {tol:g} of the largest |out|)")
+    check(rel <= tol, f"mlp_fused {name} B={B} disagrees with its plain "
+                      f"version")
+    _, flops, b_ms, b_by = mlp_bound(name, B)
+    row = dict(
+        route="cuda", source="deepflame_torch/csrc/mlp_fused.cu",
+        replaces=f"{PALLAS}:69 (mlp_fused_lanes)", max_abs_err=err,
+        **timings(torch, K.mlp_fused, "mlp_fused_", plain, sets,
+                  plain_reps=plain_reps, reps=reps, warm=warm,
+                  ops_per_call=plan[1]),
+        bound_ms=b_ms, bound_by=b_by, shape=[B, S, MLP_WIDTHS[0]], dtype=name)
+    row.update(scratch_bytes=scratch, tflops=flops / row["ms"] / 1e9,
+               bound_share=b_ms / row["ms"])
+    return row
+
+
 def _mlp_figures(torch, K, g) -> dict:
-    """mlp_fused against its plain version: bf16 at the DNN main path's one
-    call (B = 96^3 cells, S = 8, widths 11 -> 1600 -> 800 -> 400 -> 1; the
-    plain version in 2^17-lane chunks), float32 at B = 2^14 and float64 at
-    B = 2^12. Tolerances relative to the largest |out|: bf16 2e-3 (a sum in
+    """mlp_fused against its plain version, S = 8, widths 11 -> 1600 -> 800
+    -> 400 -> 1: bf16 at the DNN main path's one call (B = 96^3 cells),
+    f32 at B = 2^14 and at 96^3 (the f32 mode is what a DNN case built by
+    the case runtime runs), f64 at B = 2^12; the plain version in 2^17-lane
+    chunks. Tolerances relative to the largest |out|: bf16 2e-3 (a sum in
     another order can move one bf16 rounding of an activation), f32 1e-5,
     f64 1e-12. No single PyTorch call computes the four-layer MLP, so the
-    library time is null; the cuBLAS chain (four torch.baddbmm and three
-    F.gelu in bf16, 2^17 lanes at a time) is printed as a yardstick. The
-    port never calls it. The bf16 kernel makes four CUDA launches per chunk
-    of lanes, as many as its library's plan (mlp_plan) says: its device time
-    sums all of them, and every record of the profiled window must be one of
-    its kernels, none missing. Its row adds the launches per call that the
-    window recorded, the scratch bytes the call held beyond its result (the
-    allocator's peak during one call less what stays allocated after it),
-    TFLOP/s and its share of the bound."""
+    library time is null. The yardstick is the cuBLAS chain: for f32 and
+    f64 the plain version itself (four torch.matmul and three F.gelu in the
+    mode's type), its device time printed again as `cublas_chain_ms`; for
+    bf16, whose plain version rounds in float32, four torch.baddbmm and
+    three F.gelu in bf16, 2^17 lanes at a time. The port never calls
+    either. The bf16 row is the kernels line's entry; the f32 and f64 rows
+    are its `modes`."""
     import torch.nn.functional as F_nn
 
     chunk = 1 << 17
-    rows = {}
-    for wdt, B, tol, name in ((torch.bfloat16, N_MAIN ** 3, 2e-3, "bf16"),
-                              (torch.float32, 1 << 14, 1e-5, "f32"),
-                              (torch.float64, 1 << 12, 1e-12, "f64")):
-        x, Ws, bs = _mlp_operands(torch, g, wdt, B)
-        Ws = K.mlp_pack(Ws)
-        sets = [(x, Ws, bs)]
-        sets.append((torch.randn(x.shape, generator=g, device="cuda").to(
-            x.dtype), Ws, bs))
-        plain = lambda x_, W_, b_: K.mlp_fused_plain(x_, W_, b_, chunk=chunk)
-        err, rel = max_rel_err(torch, K.mlp_fused(x, Ws, bs), plain(x, Ws, bs))
-        print(f"mlp_fused {name} B={B} S=8 widths 11-1600-800-400-1: max abs "
-              f"err {err:.3e}, rel {rel:.3e} (tolerance {tol:g} of the "
-              f"largest |out|)")
-        check(rel <= tol, f"mlp_fused {name} disagrees with its plain version")
-        n_bytes, flops = _mlp_work(B, 8, 11, Ws, Ws[0].element_size(),
-                                   x.element_size())
-        if wdt == torch.bfloat16:
-            b_ms, b_by = bound_ms(n_bytes, flops, BF16_TC_FLOP_PER_S)
-        elif wdt == torch.float32:
-            b_ms, b_by = bound_ms(n_bytes, flops)
-        else:   # bounded here by its bytes alone (no float64 peak is used)
-            b_ms, b_by = bound_ms(n_bytes, 0.0)
-        bf16 = wdt == torch.bfloat16
-        n_launch = None
-        if bf16:
-            S, K1, H1 = Ws[0].shape
-            plan = K.mlp_plan(B, S, K1, H1, Ws[1].shape[2], Ws[2].shape[2])
-            n_launch = plan[1]
-            print(f"mlp_fused bf16 plan of its library: chunk {plan[0]} "
-                  f"lanes, {plan[1]} CUDA launches, {plan[2]} bytes of "
-                  f"scratch")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            y = K.mlp_fused(x, Ws, bs)
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            scratch = torch.cuda.max_memory_allocated() - held
-            check(held - before >= y.numel() * 4 and scratch >= plan[2],
-                  f"mlp_fused bf16 held {scratch} bytes beyond its result, "
-                  f"the plan needs {plan[2]}")
-            del y
-        rows[name] = dict(
-            route="cuda", source="deepflame_torch/csrc/mlp_fused.cu",
-            replaces=f"{PALLAS}:69 (mlp_fused_lanes)", max_abs_err=err,
-            **timings(torch, K.mlp_fused, "mlp_fused_", plain, sets,
-                      plain_reps=2, reps=5 if bf16 else 20,
-                      ops_per_call=n_launch),
-            bound_ms=b_ms, bound_by=b_by, shape=[B, 8, 11], dtype=name)
-        if bf16:
-            ms = rows[name]["ms"]
-            rows[name].update(scratch_bytes=scratch, tflops=flops / ms / 1e9,
-                              bound_share=b_ms / ms)
+    bf16 = _mlp_row(torch, K, g, torch.bfloat16, N_MAIN ** 3, 2e-3, reps=5,
+                    warm=3, chunk=chunk, plain_reps=2)
+    modes = [_mlp_row(torch, K, g, wdt, B, tol, reps, warm, chunk, plain_reps)
+             for wdt, B, tol, reps, warm, plain_reps in (
+                 (torch.float32, 1 << 14, 1e-5, 20, 3, 5),
+                 (torch.float32, N_MAIN ** 3, 1e-5, 3, 1, 2),
+                 (torch.float64, 1 << 12, 1e-12, 20, 3, 5))]
+    for row in modes:
+        row["cublas_chain_ms"] = row["plain_ms"]
     # the cuBLAS chain on the bf16 operands
     x, Ws, bs = _mlp_operands(torch, g, torch.bfloat16, N_MAIN ** 3)
     xs = [torch.nn.functional.pad(x[i:i + chunk], (0, 5)).to(torch.bfloat16)
@@ -434,12 +467,13 @@ def _mlp_figures(torch, K, g) -> dict:
                 h = torch.baddbmm(bb[i], h, Ws[i])
                 if i < 3:
                     h = F_nn.gelu(h)
-    rows["bf16"]["cublas_chain_ms"] = device_ms(torch, chain, [(xs,)], reps=3,
-                                                warm=1)
+    bf16["cublas_chain_ms"] = device_ms(torch, chain, [(xs,)], reps=3, warm=1)
     del xs
-    for name in ("f32", "f64"):
-        print(f"mlp_fused {name} figures: " + json.dumps(rows[name]))
-    return rows["bf16"]
+    for row in modes:
+        print(f"mlp_fused {row['dtype']} B={row['shape'][0]} figures: "
+              + json.dumps(row))
+    bf16["modes"] = modes
+    return bf16
 
 
 def _ell_csr(torch, diag, nbr, coef, side):

@@ -14,10 +14,12 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 `gj_inverse`           `gj_inverse_lanes`: Rosenbrock W inverse of the stiff
                        chemistry
 `mlp_fused`            `mlp_fused_lanes`: the DF-ODENet MLPs of the DNN
-                       chemistry (bf16: four kernels per chunk of lanes,
+                       chemistry, layer by layer through scratch, four
+                       kernels per chunk of lanes in every mode (bf16:
                        layer 1 on mma.sync, layers 2 and 3 in a persistent
                        TMA-fed wgmma GEMM whose epilogue warps apply
-                       bias+GELU; or f32/f64 FMA, one kernel)
+                       bias+GELU; f32: tiled GEMMs on the CUDA cores; f64:
+                       tiled GEMMs on the FP64 tensor cores)
 `ell_matvec`           `ell_matvec`: the pressure-CG matvec of the face-list
                        step on a general (blockMesh, polyMesh) mesh
 =====================  =====================================================
@@ -25,7 +27,7 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
 (the tests) and launches its kernel for CUDA tensors, raising on anything the
 kernel does not take; it never falls back from kernel to plain on the card.
-Each wrapper call that launches adds one to `launches[name]` (the bf16
+Each wrapper call that launches adds one to `launches[name]` (an
 `mlp_fused` call makes four CUDA launches per chunk of lanes in one C call;
 `mlp_plan` asks the library for its chunks, launches and scratch).
 
@@ -62,15 +64,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # source file and C argument types (the stream pointer last) of each kernel,
 # per entry point `<name>_<suffix>` where a source has several (a mode each,
-# and the bf16 MLP's plan query, which takes no stream)
+# and the MLP's plan query, which takes no stream)
 _KERNELS = {
     "stencil7_apply": ("stencil7.cu", [_P] * 9 + [_L, _I, _I, _I, _P]),
     "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
     "gj_inverse": ("gj_inverse.cu", [_P, _P, _I, _L, _P]),
-    "mlp_fused": ("mlp_fused.cu", {"bf16": [_P] * 11 + [_L] + [_I] * 7 + [_P],
-                                   "bf16_plan": [_L] + [_I] * 5 + [_P] * 3,
-                                   "f32": [_P] * 10 + [_I] * 7 + [_P],
-                                   "f64": [_P] * 10 + [_I] * 7 + [_P]}),
+    "mlp_fused": ("mlp_fused.cu", {
+        **{mode: [_P] * 11 + [_L] + [_I] * 7 + [_P]
+           for mode in ("bf16", "f32", "f64")},
+        "plan": [_I, _L] + [_I] * 5 + [_P] * 3}),
     "ell_matvec": ("ell_matvec.cu", [_P] * 5 + [_L, _I, _P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
@@ -308,31 +310,20 @@ def gj_inverse(W_t):
 
 # ------------------------------------------------------- fused DF-ODENet MLP
 
-# lanes per block of the CUDA-core modes (csrc/mlp_fused.cu)
-_MLP_LANES = {torch.float32: 16, torch.float64: 8}
-_SMEM_LIMIT = 232_448            # bytes of shared memory a block may use, sm_90
-
-
-def _mlp_smem(wdt, F, H1, H2, H3) -> int:
-    """Shared-memory bytes of one block of the CUDA-core modes
-    (csrc/mlp_fused.cu)."""
-    return _MLP_LANES[wdt] * (max(H1, H3) + max(H2, F)) * wdt.itemsize
-
-
-def mlp_plan(B: int, S: int, K1: int, H1: int, H2: int,
+def mlp_plan(wdt: torch.dtype, B: int, S: int, K1: int, H1: int, H2: int,
              H3: int) -> tuple[int, int, int]:
-    """The bf16 kernel's walk over B lanes, as the kernel's library decides
-    it: (lanes per chunk, CUDA launches per call, bytes of scratch). Raises
-    ValueError for widths the bf16 kernel does not take. Needs the built
-    library (nvcc), so only where the kernels run."""
+    """The kernel's walk over B lanes in the mode of weight type `wdt`, as
+    the kernel's library decides it: (lanes per chunk, CUDA launches per
+    call, bytes of scratch). Raises ValueError for widths the mode does not
+    take. Needs the built library (nvcc), so only where the kernels run."""
     chunk, n, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    err = _function("mlp_fused", "bf16_plan")(
-        B, S, K1, H1, H2, H3, ctypes.byref(chunk), ctypes.byref(n),
-        ctypes.byref(nbytes))
+    err = _function("mlp_fused", "plan")(
+        wdt.itemsize, B, S, K1, H1, H2, H3, ctypes.byref(chunk),
+        ctypes.byref(n), ctypes.byref(nbytes))
     if err != 0:
-        raise ValueError(f"mlp_fused: the bf16 kernel takes K1, H1, H2 and H3 "
-                         f"multiples of 16, got {(K1, H1, H2, H3)} "
-                         f"(S = {S}, B = {B})")
+        raise ValueError(f"mlp_fused: the {wdt} kernel does not take K1, "
+                         f"H1, H2, H3 = {(K1, H1, H2, H3)} (S = {S}, B = {B}; "
+                         f"see make_plan in csrc/mlp_fused.cu)")
     return chunk.value, n.value, nbytes.value
 
 
@@ -384,13 +375,16 @@ def mlp_fused(x, Ws, bs, chunk: int | None = None):
 
     Ws: [(S, K1, H1), (S, H1, H2), (S, H2, H3), (S, H3, 1)], K1 >= F (rows
     past F are zero padding), in `mlp_pack`'s layout; bs: [(S, H1), (S, H2),
-    (S, H3), (S, 1)]. The weights' type picks the mode:
+    (S, H3), (S, 1)]. The weights' type picks the mode. Every mode takes the
+    lanes in `mlp_plan`'s chunks, four launches each, and passes the hidden
+    activations layer by layer through scratch in device memory of the
+    plan's bytes, allocated here:
     - bfloat16: x and biases float32; layers 1 to 3 on the tensor cores,
-      the hidden activations through bf16 scratch in device memory, lanes in
-      `mlp_plan`'s chunks (four launches each). Widths: K1, H1, H2 and H3
-      multiples of 16.
-    - float32 or float64: x, biases and weights all of that type; one launch,
-      activations in shared memory.
+      bf16 activations. Widths: K1, H1, H2 and H3 multiples of 16.
+    - float32: x, biases and weights float32; tiled GEMMs on the CUDA cores,
+      f32 activations. Any widths.
+    - float64: the same in float64, the products of layers 2 and 3 on the
+      FP64 tensor cores. Any widths.
     `chunk` only bounds the plain version's activations on the CPU."""
     if x.device.type == "cpu":
         return mlp_fused_plain(x, Ws, bs, chunk)
@@ -422,22 +416,14 @@ def mlp_fused(x, Ws, bs, chunk: int | None = None):
         raise ValueError(f"mlp_fused: shapes x {tuple(x.shape)}, W "
                          f"{[tuple(W.shape) for W in Ws]}, b "
                          f"{[tuple(b.shape) for b in bs]} do not chain")
-    if bf16:
-        _, _, n_scratch = mlp_plan(B, S, K1, H1, H2, H3)
-    elif (smem := _mlp_smem(wdt, F, H1, H2, H3)) > _SMEM_LIMIT:
-        raise ValueError(f"mlp_fused: widths {(F, H1, H2, H3)} need {smem} "
-                         f"bytes of shared memory in {wdt}, over {_SMEM_LIMIT}")
+    _, _, n_scratch = mlp_plan(wdt, B, S, K1, H1, H2, H3)
     out = torch.empty((B, S), dtype=xdt, device=x.device)
     if B == 0:
         return out
-    ptrs = [t.data_ptr() for t in ops]
-    if not bf16:
-        _launch("mlp_fused", wdt, x.device, *ptrs, out.data_ptr(), B, F, K1,
-                H1, H2, H3, S)
-        return out
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
-    _launch("mlp_fused", wdt, x.device, *ptrs, out.data_ptr(),
-            scratch.data_ptr(), n_scratch, B, F, K1, H1, H2, H3, S)
+    _launch("mlp_fused", wdt, x.device, *[t.data_ptr() for t in ops],
+            out.data_ptr(), scratch.data_ptr(), n_scratch, B, F, K1, H1, H2,
+            H3, S)
     return out
 
 

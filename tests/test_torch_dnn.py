@@ -83,22 +83,30 @@ def _rel(a, b):
 
 # ------------------------------------------------------- the fused kernel
 
-@pytest.mark.parametrize("S,F", [(8, 11), (20, 23), (4, 67)])
-@pytest.mark.parametrize("mode", ["f32", "bf16"])
-def test_mlp_fused_plain_matches_pallas(S, F, mode):
+@pytest.mark.parametrize("mode,S,F,hidden,B", [
+    ("f32", 8, 11, HIDDEN, 512), ("f32", 20, 23, HIDDEN, 512),
+    ("f32", 4, 67, HIDDEN, 512), ("bf16", 8, 11, HIDDEN, 512),
+    ("bf16", 20, 23, HIDDEN, 512), ("bf16", 4, 67, HIDDEN, 512),
+    ("f32", 8, 11, (1600, 800, 400), 256)],
+    ids=["f32-8-11", "f32-20-23", "f32-4-67", "bf16-8-11", "bf16-20-23",
+         "bf16-4-67", "f32-8-11-full"])
+def test_mlp_fused_plain_matches_pallas(mode, S, F, hidden, B):
     """mlp_fused (CPU: its plain version) against mlp_fused_lanes in
     interpret mode, at H2_Li's shape (S = 8, F = 11), drm19's (S = 20,
     F = 23) and a 65-species mechanism's input width (F = 67, padded to
-    K1 = 80; 4 of its nets), hidden (64, 32, 16). f32: 2e-5, the Pallas test's own
-    tolerance (the Pallas erf polynomial is within 1.5e-7). bf16: 2e-3 of the
-    largest |out|; both round x, W and each activation to bf16 at the same
-    places, and a sum taken in another order can move a rounding by one bf16
-    step (2^-8). The port's weights go in through `mlp_pack`, the layout
-    DFODENet hands the kernel (bf16 layers 1 to 3 K-major)."""
+    K1 = 80; 4 of its nets), hidden (64, 32, 16), and in f32 once at the DNN
+    path's full widths (1600, 800, 400), He-scaled there so that the
+    activations stay of unit scale. f32: 2e-5, the Pallas test's own
+    tolerance (the Pallas erf polynomial is within 1.5e-7). bf16: 2e-3 of
+    the largest |out|; both round x, W and each activation to bf16 at the
+    same places, and a sum taken in another order can move a rounding by one
+    bf16 step (2^-8). The port's weights go in through `mlp_pack`, the
+    layout DFODENet hands the kernel (bf16 layers 1 to 3 K-major)."""
     rng = np.random.default_rng(11)
-    B = 512
-    sizes = (F,) + HIDDEN + (1,)
-    Ws = [rng.normal(scale=0.3, size=(S, a, b)).astype(np.float32)
+    sizes = (F,) + hidden + (1,)
+    full = hidden != HIDDEN
+    Ws = [rng.normal(scale=(2.0 / a) ** 0.5 if full else 0.3,
+                     size=(S, a, b)).astype(np.float32)
           for a, b in zip(sizes[:-1], sizes[1:])]
     bs = [rng.normal(scale=0.1, size=(S, b)).astype(np.float32)
           for b in sizes[1:]]

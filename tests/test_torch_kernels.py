@@ -234,14 +234,14 @@ def _mlp_operands(device, wdt, S=8, F=11, hidden=(1600, 800, 400), B=3000,
                   seed=3):
     """Seeded operands of mlp_fused at the DNN path's widths: He-scaled
     weights (first layer padded with zero rows to 16), small biases, x of
-    unit scale; B not a multiple of any block."""
+    unit scale; B not a multiple of any block. A width may be 0."""
     g = torch.Generator(device=device).manual_seed(seed)
     xdt = torch.float32 if wdt == torch.bfloat16 else wdt
     sizes = (F,) + tuple(hidden) + (1,)
     Ws, bs = [], []
     for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
         W = torch.randn((S, a, b), generator=g, device=device,
-                        dtype=torch.float64) * (2.0 / a) ** 0.5
+                        dtype=torch.float64) * (2.0 / max(a, 1)) ** 0.5
         if i == 0:
             W = torch.nn.functional.pad(W, (0, 0, 0, (-a) % 16))
         Ws.append(W.to(wdt).contiguous())
@@ -251,33 +251,63 @@ def _mlp_operands(device, wdt, S=8, F=11, hidden=(1600, 800, 400), B=3000,
     return x.to(xdt), Ws, bs
 
 
-# lanes of one bf16 wrapper chunk at S = 8 (test_cuda_mlp_plan checks it)
+# lanes of one wrapper chunk at S = 8, per mode (test_cuda_mlp_plan checks
+# them)
 _CHUNK8 = 65536
+_CHUNK8_F32, _CHUNK8_F64 = 32768, 16384
 
 
 @pytest.mark.gpu
 def test_cuda_mlp_plan_chunks_and_scratch(cuda):
-    """The bf16 kernel's walk over the lanes, as its library plans it:
-    chunks of 2^19 / S lanes cut to the 128-lane tile, fewer when B is
-    small; four launches a chunk; bf16 h1 and h2 and f32 layer-4 partials
-    (one per 40 columns, a ragged last one included) for one chunk. Widths
-    that are not multiples of 16 raise."""
+    """The kernel's walk over the lanes, as its library plans it: chunks of
+    2^20 / (bytes of a value) lanes x species cut to the 128-lane tile,
+    fewer when B is small; four launches a chunk; one chunk's h1 and h2 in
+    the mode's type (f32 and f64 rows padded to 4 values) and layer 4's
+    partials (bf16: f32, one per 40 columns; f32: one per 128; f64: one per
+    32; a ragged last one included). bf16 widths that are not multiples of
+    16 raise, and in every mode a width below 1."""
+    bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
     per_lane = 2400 * 2 + 10 * 4
     args = (8, 16, 1600, 800, 400)
-    assert K.mlp_plan(1 << 30, *args)[0] == _CHUNK8
-    assert K.mlp_plan(884_736, *args) == (65536, 4 * 14, 8 * 65536 * per_lane)
-    assert K.mlp_plan(_CHUNK8 + 37, *args)[:2] == (65536, 8)
-    chunk, n, scratch = K.mlp_plan(10 ** 6, 20, 32, 1600, 800, 400)
+    assert K.mlp_plan(bf, 1 << 30, *args)[0] == _CHUNK8
+    assert K.mlp_plan(bf, 884_736, *args) == (65536, 4 * 14,
+                                              8 * 65536 * per_lane)
+    assert K.mlp_plan(bf, _CHUNK8 + 37, *args)[:2] == (65536, 8)
+    chunk, n, scratch = K.mlp_plan(bf, 10 ** 6, 20, 32, 1600, 800, 400)
     assert (chunk, n) == (26112, 4 * 39) and chunk % 128 == 0
     assert scratch == 20 * 26112 * per_lane <= 2.6e9
-    assert K.mlp_plan(5, *args) == (128, 4, 8 * 128 * per_lane)
-    assert K.mlp_plan(0, *args)[1] == 0
+    assert K.mlp_plan(bf, 5, *args) == (128, 4, 8 * 128 * per_lane)
+    assert K.mlp_plan(bf, 0, *args)[1] == 0
     # H3 = 48: two partial sums a lane, the second over 8 columns
-    assert K.mlp_plan(5, 1, 16, 64, 32, 48) == (128, 4,
-                                                 128 * (96 * 2 + 2 * 4))
+    assert K.mlp_plan(bf, 5, 1, 16, 64, 32, 48) == (128, 4,
+                                                     128 * (96 * 2 + 2 * 4))
     for widths in ((16, 1600, 800, 420), (8, 1600, 800, 400)):
         with pytest.raises(ValueError):
-            K.mlp_plan(5, 8, *widths)
+            K.mlp_plan(bf, 5, 8, *widths)
+    # f32: 9.6 KB of activations and 4 partials a lane, 2.52 GB a chunk
+    per_lane = 2400 * 4 + 4 * 4
+    assert K.mlp_plan(f32, 1 << 30, *args)[0] == _CHUNK8_F32
+    assert K.mlp_plan(f32, 884_736, *args) == (
+        32768, 4 * 27, 8 * 32768 * per_lane)
+    assert K.mlp_plan(f32, _CHUNK8_F32 + 37, *args)[:2] == (32768, 8)
+    assert K.mlp_plan(f32, 10 ** 6, 20, 32, 1600, 800, 400)[:2] == (
+        13056, 4 * 77)
+    assert K.mlp_plan(f32, 5, *args) == (128, 4, 8 * 128 * per_lane)
+    assert K.mlp_plan(f32, 0, *args)[1] == 0
+    # f64: 19.2 KB and 13 partials a lane
+    per_lane = 2400 * 8 + 13 * 8
+    assert K.mlp_plan(f64, 1 << 30, *args)[0] == _CHUNK8_F64
+    assert K.mlp_plan(f64, 1 << 12, *args) == (4096, 4, 8 * 4096 * per_lane)
+    assert K.mlp_plan(f64, 884_736, *args)[:2] == (16384, 4 * 54)
+    # any width: rows of 5 and 3 values padded to 8 and 4 (256-byte aligned
+    # blocks of 128 lanes), one partial of 2 columns
+    assert K.mlp_plan(f32, 5, 1, 11, 5, 3, 2) == (128, 4,
+                                                   128 * (8 + 4 + 1) * 4)
+    assert K.mlp_plan(f64, 5, 1, 11, 5, 3, 2) == (128, 4,
+                                                   128 * (8 + 4 + 1) * 8)
+    for wdt in (f32, f64):
+        with pytest.raises(ValueError):
+            K.mlp_plan(wdt, 5, 8, 16, 1600, 800, 0)
 
 
 def test_mlp_pack_layout():
@@ -310,12 +340,28 @@ _FULL = (1600, 800, 400)
     # last layer-4 partial of 8 columns
     (torch.bfloat16, 2e-3, 3, 23, (240, 208, 48), 1000),
     (torch.float32, 1e-5, 8, 11, _FULL, 3000),
-    (torch.float64, 1e-12, 8, 11, _FULL, 3000)])
+    (torch.float64, 1e-12, 8, 11, _FULL, 3000),
+    # the f32 and f64 modes at the bf16 cases' shapes
+    *((wdt, tol, S, F, hidden, B)
+      for wdt, tol, chunk in ((torch.float32, 1e-5, _CHUNK8_F32),
+                              (torch.float64, 1e-12, _CHUNK8_F64))
+      for S, F, hidden, B in (
+          (8, 11, _FULL, 5), (8, 11, _FULL, chunk + 37),
+          (20, 23, _FULL, 3000), (8, 11, _FULL, 0),
+          (8, 11, (64, 32, 16), 3000), (4, 67, _FULL, 3000),
+          (3, 23, (240, 208, 48), 1000),
+          # wider than blocks that kept a lane's activations in shared
+          # memory could take
+          (2, 11, (4096, 1024, 16), 300),
+          # widths that are no multiple of 4 (rows of h1 and h2 padded,
+          # weights read a value at a time), a last 128-column tile of 1
+          (3, 11, (129, 37, 5), 700)))])
 def test_cuda_mlp_fused_matches_plain(cuda, wdt, tol, S, F, hidden, B):
     """The fused MLP kernel against its plain version on the card, relative
     to the largest |out|: bf16 2e-3 (a sum in another order can move one
     bf16 rounding of an activation), f32 1e-5, f64 1e-12. One count per call
-    that launches; B = 0 gives an empty result."""
+    that launches; B = 0 gives an empty result. Widths a mode does not take
+    raise: bf16 no multiple of 16, any mode a layer of width 0."""
     x, Ws, bs = _mlp_operands(cuda, wdt, S=S, F=F, hidden=hidden, B=B)
     Ws = K.mlp_pack(Ws)
     before = K.launches["mlp_fused"]
@@ -333,7 +379,7 @@ def test_cuda_mlp_fused_matches_plain(cuda, wdt, tol, S, F, hidden, B):
         K.mlp_fused(x.double() if wdt != torch.float64 else x.float(), Ws, bs)
     with pytest.raises(ValueError):                  # widths it does not take
         K.mlp_fused(*_mlp_operands(cuda, wdt, B=4, hidden=(
-            (1600, 800, 420) if wdt == torch.bfloat16 else (4096, 1024, 16))))
+            (1600, 800, 420) if wdt == torch.bfloat16 else (1600, 800, 0))))
     if wdt == torch.bfloat16:
         with pytest.raises(ValueError):              # not packed K-major
             K.mlp_fused(x, [W.contiguous() for W in Ws], bs)
