@@ -14,8 +14,9 @@ toolkit (nvcc). In order:
    library call from torch.profiler, and the kernel wrapper's wall time per
    call with CUDA events; the fused MLP in bf16 (96^3 lanes), f32 (2^14 and
    96^3) and f64 (2^12), with its launches per call and scratch; the
-   Gauss-Jordan inverse also at the lane counts the chemistry launches it
-   with;
+   Gauss-Jordan inverse at n = 10 and 2^17 lanes in both types, at the lane
+   counts the chemistry launches it with, and at n = 54 (gri30's size) in
+   both types, beside the device time of an empty kernel's launch;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case and the face-list jet;
@@ -83,7 +84,7 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 
 def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
-              kernel: str | None = None, attempts: int = 3,
+              kernel: str | None = None, attempts: int = 5,
               ops_per_call: int | None = None) -> float:
     """Device time per call of fn(*args) (see device_profile)."""
     return device_profile(torch, fn, arg_sets, reps, warm, kernel, attempts,
@@ -91,7 +92,7 @@ def device_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
 
 
 def device_profile(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
-                   kernel: str | None = None, attempts: int = 3,
+                   kernel: str | None = None, attempts: int = 5,
                    ops_per_call: int | None = None) -> tuple[float, int]:
     """(device ms per call, device operations recorded in the window) of
     fn(*args). The time is the summed durations of the device
@@ -263,43 +264,7 @@ def phase_kernels(torch, K, jet_conn) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         shape=[n, n, n], dtype="float32")
 
-    # --- Gauss-Jordan: n = 10 (9 species + T), L = 2^17 lanes, both dtypes.
-    # W = I + 0.1 N(0, 1): condition number below ~5, like I - gamma dt J at
-    # the step sizes the controller accepts.
-    nn, L = 10, 1 << 17
-    tol = {torch.float32: 1e-4, torch.float64: 1e-10}
-    for dt in (torch.float32, torch.float64):
-        sets = []
-        for _ in range(6):
-            W = (torch.eye(nn, device=dev, dtype=torch.float64)[:, :, None]
-                 + 0.1 * torch.randn((nn, nn, L), generator=g, device=dev,
-                                     dtype=torch.float64)).to(dt)
-            sets.append((W,))
-        err, rel = max_rel_err(torch, K.gj_inverse(*sets[0]),
-                               K.gj_inverse_plain(*sets[0]))
-        name = "f32" if dt == torch.float32 else "f64"
-        print(f"gj_inverse n={nn} L={L} {name}: max abs err {err:.3e}, "
-              f"rel {rel:.3e} (tolerance {tol[dt]:g} of the largest entry)")
-        check(rel <= tol[dt], f"gj_inverse {name} disagrees with its plain version")
-        lib_sets = [(W.permute(2, 0, 1).contiguous(),) for (W,) in sets]
-        size = 4 if dt == torch.float32 else 8
-        # float64 work is bounded here by its bytes alone (the float32
-        # operation peak does not apply to it)
-        flops = (2 * nn ** 3 + 3 * nn ** 2) * L if dt == torch.float32 else 0
-        b_ms, b_by = bound_ms(2 * nn * nn * L * size, flops)
-        figures = dict(
-            route="cuda", source="deepflame_torch/csrc/gj_inverse.cu",
-            replaces=f"{PALLAS}:189 (gj_inverse_lanes)", max_abs_err=err,
-            **timings(torch, K.gj_inverse, "gj_inverse_kernel",
-                      K.gj_inverse_plain, sets, plain_reps=5,
-                      library_fn=torch.linalg.inv, library_sets=lib_sets),
-            bound_ms=b_ms, bound_by=b_by, shape=[nn, nn, L], dtype=str(dt)[6:])
-        if dt == torch.float32:
-            out["gj_inverse"] = figures
-        else:
-            print("gj_inverse f64 figures (bound: bytes only): "
-                  + json.dumps(figures))
-    out["gj_inverse"]["path_shapes"] = _gj_path_shapes(torch, K, g)
+    out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
     out["ell_matvec"] = _ell_figures(torch, K, g, jet_conn)
     for name, f in out.items():
@@ -310,32 +275,93 @@ def phase_kernels(torch, K, jet_conn) -> dict:
     return out
 
 
-def _gj_path_shapes(torch, K, g) -> list:
-    """gj_inverse f32, n = 10, at the lane counts the chemistry launches it
-    with: a bin and the cold slab of the jet (4,096 and 32,768 lanes) and of
-    the TGV (6,912 and 55,296), W = I + 0.1 N(0, 1) as above, tolerance 1e-4
-    of the largest entry. The six input sets lie in the L2 cache together at
-    these sizes, as the integrator's freshly made matrices would."""
-    nn, rows = 10, []
+def empty_launch_ms(torch, K) -> float:
+    """Device ms of one launch of an empty kernel (the Gauss-Jordan
+    library's): the floor under any kernel's time, beside the bounds of
+    small calls."""
+    empty = K._function("gj_inverse", "empty")
+    return device_ms(torch, lambda: empty(torch.cuda.current_stream()
+                                          .cuda_stream), [()],
+                     kernel="gj_empty_kernel")
+
+
+def gj_operand(torch, g, n: int, L: int, dtype):
+    """W = I + 0.1 sqrt(10 / n) N(0, 1), (n, n, L): condition number below
+    ~5 at every n, like I - gamma dt J at the step sizes the controller
+    accepts (the unpivoted elimination is meant for matrices near I)."""
+    return (torch.eye(n, device="cuda", dtype=torch.float64)[:, :, None]
+            + (0.1 * (10.0 / n) ** 0.5) * torch.randn(
+                (n, n, L), generator=g, device="cuda",
+                dtype=torch.float64)).to(dtype)
+
+
+def gj_bound(n: int, L: int, dtype) -> tuple[float, str]:
+    """bound_ms of one gj_inverse call: n^2 values read and written per
+    lane; float32 also (2 n^3 + 3 n^2) operations per lane at the FP32
+    peak; float64 is bounded by its bytes alone (no float64 peak used)."""
+    size = dtype.itemsize
+    flops = (2 * n ** 3 + 3 * n ** 2) * L if size == 4 else 0
+    return bound_ms(2 * n * n * L * size, flops)
+
+
+def _gj_row(torch, K, g, n: int, L: int, dtype) -> dict:
+    """gj_inverse at (n, n, L) against its plain version (tolerance f32
+    1e-4, f64 1e-10 of the largest entry) on six seeded input sets, timed
+    beside the plain version and torch.linalg.inv on the same matrices
+    lanes first; which kernel of the library ran ("reg" or "cols")."""
+    sets = [(gj_operand(torch, g, n, L, dtype),) for _ in range(6)]
+    err, rel = max_rel_err(torch, K.gj_inverse(*sets[0]),
+                           K.gj_inverse_plain(*sets[0]))
+    name = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    check(rel <= tol, f"gj_inverse {name} n={n} L={L} disagrees with its "
+                      f"plain version: {rel:.3e} of the largest entry")
+    b_ms, b_by = gj_bound(n, L, dtype)
+    return dict(
+        route="cuda", source="deepflame_torch/csrc/gj_inverse.cu",
+        replaces=f"{PALLAS}:189 (gj_inverse_lanes)", max_abs_err=err,
+        rel_err=rel,
+        kernel="reg" if n <= K.gj_limits(dtype)[0] else "cols",
+        **timings(torch, K.gj_inverse, "gj_inverse_", K.gj_inverse_plain,
+                  sets, plain_reps=5, library_fn=torch.linalg.inv,
+                  library_sets=[(W.permute(2, 0, 1).contiguous(),)
+                                for (W,) in sets]),
+        bound_ms=b_ms, bound_by=b_by, shape=[n, n, L], dtype=name)
+
+
+def _gj_figures(torch, K, g) -> dict:
+    """gj_inverse: the launch floor (an empty kernel's device time), the
+    library's limits, then rows of _gj_row: n = 10 (9 species + T) at 2^17
+    lanes in float32 (the kernels line's entry) and float64 (its own
+    line); float32 n = 10 at the lane counts the chemistry launches it
+    with, a bin and the cold slab of the jet (4,096 and 32,768 lanes) and of
+    the TGV (6,912 and 55,296), as `path_shapes`; n = 54 (gri30's size) at
+    4,096 lanes in both types, as `n54`. At 2^17 lanes the six input sets
+    exceed the 50 MB L2 cache together, so each call reads cold inputs; at
+    the path shapes they lie in it together, as the integrator's freshly
+    made matrices would."""
+    floor = empty_launch_ms(torch, K)
+    print(f"empty kernel launch: {floor:.5f} ms of device time (the floor "
+          f"beside the bounds of small calls)")
+    for dt in (torch.float32, torch.float64):
+        reg, top = K.gj_limits(dt)
+        print(f"gj_inverse {dt}: register kernel for n <= {reg}, "
+              f"register-tile kernel up to n = {top}")
+    entry = _gj_row(torch, K, g, 10, 1 << 17, torch.float32)
+    print("gj_inverse f64 figures (bound: bytes only): "
+          + json.dumps(_gj_row(torch, K, g, 10, 1 << 17, torch.float64)))
+    entry["empty_launch_ms"] = floor
+    entry["path_shapes"] = []
     for L in (4096, 6912, 32768, 55296):
-        sets = [((torch.eye(nn, device="cuda", dtype=torch.float64)[:, :, None]
-                  + 0.1 * torch.randn((nn, nn, L), generator=g, device="cuda",
-                                      dtype=torch.float64)).float(),)
-                for _ in range(6)]
-        err, rel = max_rel_err(torch, K.gj_inverse(*sets[0]),
-                               K.gj_inverse_plain(*sets[0]))
-        check(rel <= 1e-4, f"gj_inverse L={L} disagrees with its plain version")
-        b_ms, b_by = bound_ms(2 * nn * nn * L * 4,
-                              (2 * nn ** 3 + 3 * nn ** 2) * L)
-        rows.append(dict(
-            L=L, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            **timings(torch, K.gj_inverse, "gj_inverse_kernel",
-                      K.gj_inverse_plain, sets, plain_reps=5,
-                      library_fn=torch.linalg.inv,
-                      library_sets=[(W.permute(2, 0, 1).contiguous(),)
-                                    for (W,) in sets])))
-        print(f"gj_inverse n={nn} L={L} f32: " + json.dumps(rows[-1]))
-    return rows
+        row = _gj_row(torch, K, g, 10, L, torch.float32)
+        print(f"gj_inverse n=10 L={L} f32: " + json.dumps(row))
+        entry["path_shapes"].append(row)
+    entry["n54"] = []
+    for dt in (torch.float32, torch.float64):
+        row = _gj_row(torch, K, g, 54, 4096, dt)
+        print(f"gj_inverse n=54 L=4096 {row['dtype']}: " + json.dumps(row))
+        entry["n54"].append(row)
+    return entry
 
 
 def _mlp_operands(torch, g, wdt, B, S=MLP_S, widths=MLP_WIDTHS):
@@ -875,9 +901,10 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, regs, stack, stores, loads in K.ptxas_report(log):
+            print(f"  {name}: {fn}: {regs} registers, {stack} bytes of "
+                  f"stack, {stores} bytes of spill stores, {loads} of "
+                  f"spill loads")
 
     jet = build_jet(torch, N_JET)
     figures = phase_kernels(torch, K, jet[0].p_ell)

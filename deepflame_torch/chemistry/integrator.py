@@ -112,11 +112,14 @@ def rk23_attempt_batched(rhs_b: Callable, y, dt,
 
 def rosenbrock_integrate_batched(rhs_b: Callable, y0, t_end,
                                  opts: RosenbrockOptions = RosenbrockOptions(),
-                                 dt_start=None):
+                                 dt_start=None, return_nstep: bool = False):
     """Adaptive ode23s (or ROS4) over a lane batch.
 
     rhs_b: batched RHS (L, n) -> (L, n). y0: (L, n); t_end, dt_start: (L,).
-    Returns (y_final (L, n), dt_suggestion (L,))."""
+    Returns (y_final (L, n), dt_suggestion (L,)); with return_nstep also the
+    number of trips at whose start some lane was still running (the JAX
+    loop's trip count), a 0-d int64 tensor counted on y0's device, which
+    the trips run beyond it (up to CHECK_EVERY - 1) do not add to."""
     dtype = y0.dtype
     L, n = y0.shape
     eye = torch.eye(n, dtype=dtype, device=y0.device)
@@ -189,11 +192,15 @@ def rosenbrock_integrate_batched(rhs_b: Callable, y0, t_end,
     en_prev = torch.ones(L, dtype=dtype, device=y0.device)
     rej = torch.zeros(L, dtype=torch.bool, device=y0.device)
     nstep = 0
+    n_run = (torch.zeros((), dtype=torch.int64, device=y0.device)
+             if return_nstep else None)
     while nstep < opts.max_steps and bool((t < t_stop).any()):
         for _ in range(min(CHECK_EVERY, opts.max_steps - nstep)):
+            if return_nstep:
+                n_run += (t < t_stop).any()
             y, t, dt, en_prev, rej = body(y, t, dt, en_prev, rej)
             nstep += 1
-    return y, dt
+    return (y, dt, n_run) if return_nstep else (y, dt)
 
 
 def rosenbrock_integrate(rhs: Callable, y0, t_end,

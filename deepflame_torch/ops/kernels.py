@@ -12,7 +12,11 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 `helmholtz7_apply`     `helmholtz_apply` and `helmholtz_apply_tiled`: the
                        pressure-CG matvec
 `gj_inverse`           `gj_inverse_lanes`: Rosenbrock W inverse of the stiff
-                       chemistry
+                       chemistry (one launch: a register kernel with n
+                       fixed at compile time for small n, above it a
+                       kernel that spreads each lane's tableau over
+                       threads in register tiles, up to the limit
+                       `gj_limits` reads)
 `mlp_fused`            `mlp_fused_lanes`: the DF-ODENet MLPs of the DNN
                        chemistry, layer by layer through scratch, four
                        kernels per chunk of lanes in every mode (bf16:
@@ -42,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,9 +57,9 @@ import torch.nn.functional as F_nn
 
 __all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse", "mlp_fused",
            "stencil_apply_plain", "helmholtz_apply_plain", "gj_inverse_plain",
-           "mlp_fused_plain", "mlp_pack", "mlp_plan", "ell_matvec",
-           "ell_matvec_plain", "launches", "reset_launches", "build",
-           "find_nvcc", "BUILD_DIR"]
+           "mlp_fused_plain", "mlp_pack", "mlp_plan", "gj_limits",
+           "ell_matvec", "ell_matvec_plain", "launches", "reset_launches",
+           "build", "ptxas_report", "find_nvcc", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -63,12 +68,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # source file and C argument types (the stream pointer last) of each kernel,
-# per entry point `<name>_<suffix>` where a source has several (a mode each,
-# and the MLP's plan query, which takes no stream)
+# per entry point `<name>_<suffix>` where a source has several (a mode each;
+# the MLP's plan and the Gauss-Jordan limits queries, which take no stream;
+# the Gauss-Jordan library's empty kernel)
 _KERNELS = {
     "stencil7_apply": ("stencil7.cu", [_P] * 9 + [_L, _I, _I, _I, _P]),
     "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
-    "gj_inverse": ("gj_inverse.cu", [_P, _P, _I, _L, _P]),
+    "gj_inverse": ("gj_inverse.cu", {
+        "f32": [_P, _P, _I, _L, _P], "f64": [_P, _P, _I, _L, _P],
+        "limits": [_I, _P, _P], "empty": [_P]}),
     "mlp_fused": ("mlp_fused.cu", {
         **{mode: [_P] * 11 + [_L] + [_I] * 7 + [_P]
            for mode in ("bf16", "f32", "f64")},
@@ -133,6 +141,24 @@ def build() -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, bytes of stack frame, bytes of spill stores,
+    bytes of spill loads) of each entry function in nvcc's `-Xptxas -v`
+    output, kernel names as ptxas prints them (mangled). A stack frame
+    without spills is an array the kernel indexes at run time."""
+    out, fn, spills = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn, spills = m.group(1), (0, 0, 0)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            spills = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn = None
+    return out
 
 
 def _function(name: str, suffix: str):
@@ -262,9 +288,17 @@ def helmholtz7_apply(x_padded, gamma, diag, spacing):
 
 # ------------------------------------------------------ Gauss-Jordan inverse
 
-# largest n whose (n^2 + n)-value tableaux of one 32-lane block fit the
-# 227 KB of shared memory a block may use on sm_90 (csrc/gj_inverse.cu)
-_GJ_MAX_N = {torch.float32: 42, torch.float64: 29}
+def gj_limits(dtype: torch.dtype) -> tuple[int, int]:
+    """(largest n of the register kernel, largest n the library takes) for
+    float32 or float64, as csrc/gj_inverse.cu decides them. Needs the built
+    library (nvcc), so only where the kernels run."""
+    reg, top = ctypes.c_int(), ctypes.c_int()
+    err = _function("gj_inverse", "limits")(dtype.itemsize, ctypes.byref(reg),
+                                            ctypes.byref(top))
+    if err != 0:
+        raise TypeError(f"gj_inverse: takes float32 or float64, got {dtype}")
+    return reg.value, top.value
+
 
 def gj_inverse_plain(W_t):
     """Plain version (integrator._gj_inverse_batched on the lanes-last
@@ -291,18 +325,23 @@ def gj_inverse_plain(W_t):
 
 def gj_inverse(W_t):
     """Batched row-equilibrated unpivoted Gauss-Jordan inverse, lanes last:
-    W_t (n, n, L) -> (n, n, L), float32 or float64, any L."""
+    W_t (n, n, L) -> (n, n, L), float32 or float64, any L, any n up to the
+    library's limit (`gj_limits`). One launch: a register kernel for small
+    n, above it a kernel with each lane's tableau spread over threads in
+    register tiles (csrc/gj_inverse.cu)."""
     if W_t.device.type == "cpu":
         return gj_inverse_plain(W_t)
     _check("gj_inverse", [W_t])
     if W_t.dim() != 3 or W_t.shape[0] != W_t.shape[1]:
         raise ValueError(f"gj_inverse: expected (n, n, L), got {tuple(W_t.shape)}")
     n, _, L = W_t.shape
-    if n > _GJ_MAX_N[W_t.dtype]:
-        raise ValueError(f"gj_inverse: n = {n} exceeds {_GJ_MAX_N[W_t.dtype]}, "
-                         f"the largest whose tableaux fit shared memory in "
-                         f"{W_t.dtype}")
+    top = gj_limits(W_t.dtype)[1]
+    if n > top:
+        raise ValueError(f"gj_inverse: n = {n} exceeds {top}, the largest n "
+                         f"the library takes in {W_t.dtype}")
     out = torch.empty_like(W_t)
+    if n == 0 or L == 0:
+        return out
     _launch("gj_inverse", W_t.dtype, W_t.device, W_t.data_ptr(),
             out.data_ptr(), n, L)
     return out

@@ -110,15 +110,23 @@ def test_ell_plain_matches_pallas():
                                atol=1e-13 * np.abs(np.asarray(ref)).max())
 
 
-@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), (np.float64, 1e-12)])
-def test_gj_plain_matches_pallas(dtype, tol):
+@pytest.mark.parametrize("dtype,tol,n", [
+    pytest.param(dtype, tol, n, id=f"{dtype.__name__}-{tol:g}"
+                 + ("" if n == 10 else f"-n{n}"))       # n = 10: the old ids
+    for dtype, tol in ((np.float32, 2e-5), (np.float64, 1e-12))
+    for n in (2, 10, 54)])
+def test_gj_plain_matches_pallas(dtype, tol, n):
     """Lanes-last Gauss-Jordan inverse; float32 at the Pallas test's 2e-5,
-    float64 at 1e-12 (the f64 path the TPU never compiled)."""
+    float64 at 1e-12 (the f64 path the TPU never compiled). n = 10 is the
+    test mechanism's W, n = 54 gri30's. The random part of W is scaled by
+    sqrt(10 / n), so W = 5 I + N stays as well conditioned at every n: the
+    unpivoted elimination is meant for matrices near I, like I - gamma dt J."""
     import jax.numpy as jnp
     from deepflame_tpu.ops.pallas_kernels import gj_inverse_lanes
     rng = np.random.default_rng(3)
-    L, n = 512, 10
-    W = (rng.normal(size=(n, n, L)) + 5.0 * np.eye(n)[:, :, None]).astype(dtype)
+    L = 512
+    W = (np.sqrt(10.0 / n) * rng.normal(size=(n, n, L))
+         + 5.0 * np.eye(n)[:, :, None]).astype(dtype)
     ref = gj_inverse_lanes(jnp.asarray(W), block=256, interpret=True)
     out = K.gj_inverse(torch.as_tensor(W))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=tol, atol=tol)
@@ -173,23 +181,81 @@ def test_cuda_helmholtz_matches_plain(cuda, dtype):
         K.helmholtz7_apply(xp, gam, d[:, :, :-1], sp)
 
 
+def _near_identity(n, L, dtype, device, seed):
+    """W = I + 0.1 sqrt(10 / n) N(0, 1): conditioned alike at every n, like
+    I - gamma dt J at the step sizes the controller accepts."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.eye(n, device=device, dtype=torch.float64)[:, :, None]
+            + (0.1 * (10.0 / n) ** 0.5) * torch.randn(
+                (n, n, L), generator=g, device=device,
+                dtype=torch.float64)).to(dtype)
+
+
+# (n, L): "reg" is the register kernel's largest n, "reg+1" the register-
+# tile kernel's smallest, "limit" the largest the library takes (read from
+# the library)
+_GJ_CASES = ([(n, L) for n in (1, 2, 10, "reg", "reg+1", 43, 54)
+              for L in (1, 1000, 4096)]
+             + [(128, 1), (128, 256), ("limit", 1)])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,L", _GJ_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_gj_matches_plain(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    n, L = 10, 1000                        # L not a multiple of the block
-    W = (torch.eye(n, device=cuda, dtype=dtype)[:, :, None]
-         + 0.1 * torch.randn((n, n, L), generator=g, device=cuda, dtype=dtype))
+def test_cuda_gj_matches_plain(cuda, dtype, n, L):
+    """The Gauss-Jordan kernels against the plain version at every size
+    class, L = 1 and L not a multiple of any block; tolerance relative to
+    the largest entry, f32 1e-4 and f64 1e-10 (sums in another order)."""
+    reg, top = K.gj_limits(dtype)
+    n = {"reg": reg, "reg+1": reg + 1, "limit": top}.get(n, n)
+    W = _near_identity(n, L, dtype, cuda, seed=2)
     out = K.gj_inverse(W)
     ref = K.gj_inverse_plain(W)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_gj_launches_and_limit(cuda, dtype):
+    """One launch per call in either kernel; a raise only past the
+    library's limit (at least 128), and on operands the kernel does not
+    take; L = 0 launches nothing."""
+    reg, top = K.gj_limits(dtype)
+    assert 1 <= reg < top and top >= 128
+    for n in (reg, reg + 1, top):
+        W = _near_identity(n, 33, dtype, cuda, seed=3)
+        before = K.launches["gj_inverse"]
+        K.gj_inverse(W)
+        torch.cuda.synchronize()
+        assert K.launches["gj_inverse"] == before + 1
+    before = K.launches["gj_inverse"]
+    assert K.gj_inverse(torch.zeros((10, 10, 0), device=cuda,
+                                    dtype=dtype)).shape == (10, 10, 0)
+    assert K.launches["gj_inverse"] == before
+    with pytest.raises(ValueError, match=str(top)):
+        K.gj_inverse(torch.zeros((top + 1, top + 1, 4), device=cuda,
+                                 dtype=dtype))
     with pytest.raises(ValueError):
         K.gj_inverse(W.transpose(0, 1))      # not contiguous
-    too_big = 43 if dtype == torch.float32 else 30
-    with pytest.raises(ValueError):
-        K.gj_inverse(torch.zeros((too_big, too_big, 4), device=cuda,
-                                 dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ["reg", 54])
+def test_cuda_gj_zero_row_f64(cuda, n):
+    """float64, one lane's W with a zero row: its row scale and its pivot
+    both reach the 1e-30 guards. Kernel and plain version agree to 1e-10
+    of the largest entry, and the values stay finite, near 1e60."""
+    n = K.gj_limits(torch.float64)[0] if n == "reg" else n
+    W = _near_identity(n, 100, torch.float64, cuda, seed=4)
+    W[3, :, 7] = 0.0
+    out = K.gj_inverse(W)
+    ref = K.gj_inverse_plain(W)
+    assert bool(torch.isfinite(out).all())
+    big = float(ref.abs().max())
+    assert 1e59 <= big <= 1e62
+    assert float((out - ref).abs().max()) <= 1e-10 * big
 
 
 def _ell_operands(device, dtype, n=50_000, seed=4):

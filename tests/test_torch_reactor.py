@@ -118,3 +118,42 @@ def test_solve_chemistry_full_path_matches_jax(sort, order):
                                   opts=TOpts(**kw), n_bins=16,
                                   dt_start=torch.as_tensor(d0), sort=sort)
     _compare(rj, rt)
+
+
+def test_integrate_batched_trip_count_matches_jax():
+    """return_nstep: the trips at whose start some lane was still running,
+    JAX's while-loop count, from the port's loop that checks the host only
+    every CHECK_EVERY trips; 48 lanes from 1100 to 2100 K over 2 us, float64,
+    y to the tolerances of the reactor tests (T 1e-10 relative, Y 1e-12)."""
+    from deepflame_tpu.chemistry.integrator import rosenbrock_integrate_batched
+    from deepflame_tpu.chemistry.reactor import constant_pressure_rhs_batched
+
+    from deepflame_torch.chemistry.integrator import (
+        CHECK_EVERY, rosenbrock_integrate_batched as t_integrate)
+    thj, kj, tht, kt, mech = _tables()
+    n = 48
+    rng = np.random.default_rng(7)
+    s0 = np.concatenate([rng.uniform(1100.0, 2100.0, (n, 1)),
+                         _fresh(mech, n)], axis=1)
+    p, t_end = np.full(n, 101325.0), np.full(n, 2e-6)
+    kw = dict(rtol=1e-5, atol=1e-9, max_steps=2000)
+    yj, dtj, nj = rosenbrock_integrate_batched(
+        constant_pressure_rhs_batched(thj, kj, jnp.asarray(p)),
+        jnp.asarray(s0), jnp.asarray(t_end), RosenbrockOptions(**kw),
+        return_nstep=True)
+    rhs_t = treactor.constant_pressure_rhs_batched(tht, kt, torch.as_tensor(p))
+    yt, dtt, nt = t_integrate(rhs_t, torch.as_tensor(s0),
+                              torch.as_tensor(t_end), TOpts(**kw),
+                              return_nstep=True)
+    assert nt.dtype == torch.int64 and nt.dim() == 0
+    assert int(nt) == int(nj)
+    assert int(nj) > CHECK_EVERY and int(nj) % CHECK_EVERY != 0
+    np.testing.assert_allclose(yt[:, 0].numpy(), np.asarray(yj)[:, 0],
+                               rtol=1e-10)
+    np.testing.assert_allclose(yt[:, 1:].numpy(), np.asarray(yj)[:, 1:],
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(dtt.numpy(), np.asarray(dtj), rtol=1e-8)
+    # the default call returns (y, dt) as before
+    y2, dt2 = t_integrate(rhs_t, torch.as_tensor(s0), torch.as_tensor(t_end),
+                          TOpts(**kw))
+    assert torch.equal(y2, yt) and torch.equal(dt2, dtt)

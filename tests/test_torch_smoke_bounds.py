@@ -54,3 +54,23 @@ def test_mlp_bound_counts_bytes_once():
         assert cs.bound_ms(n_bytes, 0.0) == (n_bytes / cs.HBM_BYTES_PER_S
                                              * 1e3, "bytes")
     assert sum(widths[1:]) == 2801
+
+
+@pytest.mark.parametrize("n,L,size,ms,by", [
+    (10, 1 << 17, 4, 0.0313, "bytes"),
+    (10, 1 << 17, 8, 0.0626, "bytes"),
+    (10, 4096, 4, 0.00098, "bytes"),
+    (54, 4096, 4, 0.0285, "bytes"),
+    (54, 4096, 8, 0.0570, "bytes")])
+def test_gj_bound_at_smoke_shapes(n, L, size, ms, by):
+    """gj_bound: n^2 values read and written per lane; float32 also
+    (2 n^3 + 3 n^2) operations per lane at the FP32 peak, which bind at no
+    shape the smoke times; float64 by its bytes alone."""
+    import types
+    cs = _smoke()
+    dtype = types.SimpleNamespace(itemsize=size)
+    b_ms, b_by = cs.gj_bound(n, L, dtype)
+    assert b_by == by
+    assert b_ms == pytest.approx(ms, rel=2e-3)
+    assert b_ms == pytest.approx(2 * n * n * L * size / cs.HBM_BYTES_PER_S
+                                 * 1e3)
