@@ -16,11 +16,17 @@ toolkit (nvcc). In order:
    96^3) and f64 (2^12), with its launches per call and scratch; the
    Gauss-Jordan inverse at n = 10 and 2^17 lanes in both types, at the lane
    counts the chemistry launches it with, and at n = 54 (gri30's size) in
-   both types, beside the device time of an empty kernel's launch;
+   both types, beside the device time of an empty kernel's launch; the
+   stencil at the structured jet's (9, 128, 64, 64) with the boundary
+   coefficients zeroed, and the Helmholtz operator on the jet's mesh and on
+   every level of its multigrid hierarchy;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
-   the stiff-chemistry case, the DNN-chemistry case and the face-list jet;
-4. drives the three main paths in float32 on the 9-species test mechanism,
+   the stiff-chemistry case, the DNN-chemistry case, the face-list jet, the
+   structured jet with Jacobi and with multigrid pressure preconditioning,
+   and the stiff case with the dynamic Smagorinsky model; and a
+   constant-volume 0D ignition;
+4. drives the four main paths in float32 on the 9-species test mechanism,
    warm-up steps and then two timed steps each, with the launch counts set
    to 0 just before the timed steps and read just after:
    - the stiff path at 96^3, the 3D reacting LES Taylor-Green step
@@ -33,11 +39,18 @@ toolkit (nvcc). In order:
      mesh (deepflame_torch.cases.jet_flame_3d_les_fl, dt 5e-7 s, two
      warm-up steps as bench.py takes); the ELL SpMV and Gauss-Jordan
      kernels must launch;
+   - the structured jet, the same case on the 128 x 64 x 64 box
+     (deepflame_torch.cases.jet_flame_3d_les, bench.py's jet line; one
+     FieldBCs per species); the stencil, Helmholtz and Gauss-Jordan kernels
+     must launch. Then one more step of its state with Jacobi and with
+     multigrid pressure preconditioning, whose smoother must run the
+     Helmholtz kernel on every level, and the two jets' ms/step side by
+     side;
 5. runs the DNN case through the case runtime at 32^3 (a CaseConfig, the
    solver factory with an npz checkpoint of seeded weights, run_case with
    splittingStrategy, one checkpoint, then a restart from it);
-6. prints one JSON line of kernel figures, then, as the last line,
-   {"ok": true, "device": {...}}.
+6. prints its total seconds, the card line, one JSON line of kernel
+   figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 With no CUDA device it exits with code 2 before doing anything. It never
@@ -212,57 +225,27 @@ def phase_kernels(torch, K, jet_conn) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    # --- stencil: the 9-species batch at 96^3, float32
+    # --- stencil: the 9-species batch at 96^3 (periodic) and at the
+    # structured jet's 128 x 64 x 64 (boundary coefficients zeroed), float32
     S, n = 9, 96
-    shape = (S, n, n, n)
-    sets = []
-    for _ in range(2):
-        sets.append([torch.randn(shape, generator=g, device=dev)
-                     for _ in range(2)]
-                    + [tuple(torch.randn(shape, generator=g, device=dev)
-                             for _ in range(3)) for _ in range(2)])
-    x, D, lo, hi = sets[0]
-    err, rel = max_rel_err(torch, K.stencil7_apply(x, D, lo, hi),
-                           K.stencil_apply_plain(x, D, lo, hi))
-    print(f"stencil7_apply {shape} f32: max abs err {err:.3e}, "
-          f"rel {rel:.3e} (tolerance 1e-5 of the largest |out|)")
-    check(rel <= 1e-5, "stencil7_apply disagrees with its plain version")
-    cells = S * n ** 3
-    b_ms, b_by = bound_ms(9 * 4 * cells, 13 * cells)
-    out["stencil7_apply"] = dict(
-        route="cuda", source="deepflame_torch/csrc/stencil7.cu",
-        replaces=f"{PALLAS}:378 (stencil_apply_tiled)", max_abs_err=err,
-        **timings(torch, K.stencil7_apply, "stencil7_kernel",
-                  K.stencil_apply_plain, sets, plain_reps=5),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=list(shape), dtype="float32")
+    out["stencil7_apply"] = _stencil_row(torch, K, g, (S, n, n, n), False)
+    row = _stencil_row(torch, K, g, (S, 2 * N_JET, N_JET, N_JET), True)
+    print("stencil7_apply at the structured jet's shape: " + json.dumps(row))
+    out["stencil7_apply"]["sjet_shape"] = row
 
-    # --- Helmholtz: the pressure operator at 96^3, float32, main-path spacing
+    # --- Helmholtz: the pressure operator at 96^3, float32, main-path
+    # spacing; then the structured jet's 128 x 64 x 64 and each level of its
+    # multigrid hierarchy
     h = 2.0 * math.pi * 1e-3 / n
-    sp = (h, h, h)
     sets = []
     for _ in range(4):
         xp = torch.randn((n + 2,) * 3, generator=g, device=dev)
         gam = tuple(torch.rand(s, generator=g, device=dev) * 1e-6 + 1e-7
                     for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
         d = torch.rand((n, n, n), generator=g, device=dev) * 3.0 + 1.0
-        sets.append((xp, gam, d, sp))
-    err, rel = max_rel_err(torch, K.helmholtz7_apply(*sets[0]),
-                           K.helmholtz_apply_plain(*sets[0]))
-    print(f"helmholtz7_apply {n}^3 f32: max abs err {err:.3e}, rel {rel:.3e} "
-          f"(tolerance 1e-5 of the largest |out|)")
-    check(rel <= 1e-5, "helmholtz7_apply disagrees with its plain version")
-    n_bytes = 4 * ((n + 2) ** 3 + 3 * (n + 1) * n * n + 2 * n ** 3)
-    b_ms, b_by = bound_ms(n_bytes, 22 * n ** 3)
-    out["helmholtz7_apply"] = dict(
-        route="cuda", source="deepflame_torch/csrc/helmholtz7.cu",
-        replaces=f"{PALLAS}:438 (helmholtz_apply)",
-        also_replaces=f"{PALLAS}:301 (helmholtz_apply_tiled)",
-        max_abs_err=err,
-        **timings(torch, K.helmholtz7_apply, "helmholtz7_kernel",
-                  K.helmholtz_apply_plain, sets),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=[n, n, n], dtype="float32")
+        sets.append((xp, gam, d, (h, h, h)))
+    out["helmholtz7_apply"] = _helmholtz_row(torch, K, sets)
+    out["helmholtz7_apply"]["sjet_levels"] = _helmholtz_levels(torch, K, g)
 
     out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
@@ -273,6 +256,99 @@ def phase_kernels(torch, K, jet_conn) -> dict:
               f"plain {f['plain_ms']:.4f} ms, library {f['library_ms']} ms, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
     return out
+
+
+def _stencil_row(torch, K, g, shape, open_boundaries: bool) -> dict:
+    """stencil7_apply against its plain version at `shape` (S, nx, ny, nz)
+    in float32 on two seeded operand sets; with open_boundaries the
+    coefficients that reach across a boundary (lo at the first cell, hi at
+    the last, every axis) are zero, as FvMatrix.stencil() leaves them on a
+    non-periodic mesh. Tolerance 1e-5 of the largest |out|."""
+    dev = "cuda"
+    sets = []
+    for _ in range(2):
+        x, D = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+        lo, hi = (tuple(torch.randn(shape, generator=g, device=dev)
+                        for _ in range(3)) for _ in range(2))
+        if open_boundaries:
+            for ax in range(3):
+                n_ax = shape[ax + 1]
+                lo[ax].narrow(ax + 1, 0, 1).zero_()
+                hi[ax].narrow(ax + 1, n_ax - 1, 1).zero_()
+        sets.append([x, D, lo, hi])
+    err, rel = max_rel_err(torch, K.stencil7_apply(*sets[0]),
+                           K.stencil_apply_plain(*sets[0]))
+    print(f"stencil7_apply {shape} f32: max abs err {err:.3e}, "
+          f"rel {rel:.3e} (tolerance 1e-5 of the largest |out|)")
+    check(rel <= 1e-5, f"stencil7_apply {shape} disagrees with its plain "
+                       "version")
+    cells = math.prod(shape)
+    b_ms, b_by = bound_ms(9 * 4 * cells, 13 * cells)
+    return dict(
+        route="cuda", source="deepflame_torch/csrc/stencil7.cu",
+        replaces=f"{PALLAS}:378 (stencil_apply_tiled)", max_abs_err=err,
+        **timings(torch, K.stencil7_apply, "stencil7_kernel",
+                  K.stencil_apply_plain, sets, plain_reps=5),
+        bound_ms=b_ms, bound_by=b_by, shape=list(shape), dtype="float32")
+
+
+def _helmholtz_row(torch, K, sets) -> dict:
+    """helmholtz7_apply against its plain version on `sets` of (x padded,
+    gamma faces, diag, spacing), float32, tolerance 1e-5 of the largest
+    |out|; bound: x padded, the three face arrays, diag and out once, 22
+    operations a cell."""
+    nx, ny, nz = sets[0][2].shape
+    err, rel = max_rel_err(torch, K.helmholtz7_apply(*sets[0]),
+                           K.helmholtz_apply_plain(*sets[0]))
+    print(f"helmholtz7_apply {nx} x {ny} x {nz} f32: max abs err {err:.3e}, "
+          f"rel {rel:.3e} (tolerance 1e-5 of the largest |out|)")
+    check(rel <= 1e-5, f"helmholtz7_apply {nx}x{ny}x{nz} disagrees with its "
+                       "plain version")
+    cells = nx * ny * nz
+    n_bytes = 4 * ((nx + 2) * (ny + 2) * (nz + 2) + (nx + 1) * ny * nz
+                   + nx * (ny + 1) * nz + nx * ny * (nz + 1) + 2 * cells)
+    b_ms, b_by = bound_ms(n_bytes, 22 * cells)
+    return dict(
+        route="cuda", source="deepflame_torch/csrc/helmholtz7.cu",
+        replaces=f"{PALLAS}:438 (helmholtz_apply)",
+        also_replaces=f"{PALLAS}:301 (helmholtz_apply_tiled)",
+        max_abs_err=err,
+        **timings(torch, K.helmholtz7_apply, "helmholtz7_kernel",
+                  K.helmholtz_apply_plain, sets),
+        bound_ms=b_ms, bound_by=b_by, shape=[nx, ny, nz], dtype="float32")
+
+
+def _helmholtz_levels(torch, K, g) -> list:
+    """helmholtz7_apply on the structured jet's mesh (128 x 64 x 64 over 60
+    x 30 x 30 mm) and on every level of the multigrid hierarchy that
+    ops.multigrid builds from it (the coarsened gamma and diag of four
+    seeded fine operand sets), each row printed."""
+    from deepflame_torch.mesh import StructuredMesh
+    from deepflame_torch.ops.multigrid import mg_levels
+
+    mesh = StructuredMesh.box([0.06, 0.03, 0.03],
+                              [2 * N_JET, N_JET, N_JET], device="cuda")
+    hier = []
+    for _ in range(4):
+        sh = mesh.shape
+        gam = tuple(torch.rand(f, generator=g, device="cuda") * 1e-6 + 1e-7
+                    for f in ((sh[0] + 1,) + sh[1:],
+                              (sh[0], sh[1] + 1, sh[2]), sh[:2] + (sh[2] + 1,)))
+        d = torch.rand(sh, generator=g, device="cuda") * 3.0 + 1.0
+        hier.append(mg_levels(mesh, d, gam))
+    rows = []
+    for lvl in range(len(hier[0])):
+        sets = []
+        for levels in hier:
+            m, gam, d, _ = levels[lvl]
+            xp = torch.randn(tuple(n + 2 for n in m.shape), generator=g,
+                             device="cuda")
+            sets.append((xp, gam, d, m.spacing))
+        row = _helmholtz_row(torch, K, sets)
+        row["level"] = lvl
+        print(f"helmholtz7_apply multigrid level {lvl}: " + json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 def empty_launch_ms(torch, K) -> float:
@@ -568,37 +644,65 @@ def _ell_figures(torch, K, g, conn) -> dict:
 # kernels each path must launch during its timed steps
 PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
                 "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused"),
-                "fl": ("ell_matvec", "gj_inverse")}
-STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT}
+                "fl": ("ell_matvec", "gj_inverse"),
+                "sjet": ("stencil7_apply", "helmholtz7_apply", "gj_inverse")}
+STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT, "sjet": JET_DT}
 
 
 def _build_case(path: str, n: int, dtype, device=None, **kw):
-    from deepflame_torch.cases import (jet_flame_3d_les_fl, reacting_tgv_3d_les,
+    from deepflame_torch.cases import (jet_flame_3d_les, jet_flame_3d_les_fl,
+                                       reacting_tgv_3d_les,
                                        reacting_tgv_3d_les_dnn)
-    if path == "stiff":
-        return reacting_tgv_3d_les(MECH, n=n, dtype=dtype, device=device, **kw)
-    if path == "fl":
-        return jet_flame_3d_les_fl(MECH, n=n, dtype=dtype, device=device, **kw)
-    return reacting_tgv_3d_les_dnn(MECH, n=n, dtype=dtype, device=device, **kw)
+    build = {"stiff": reacting_tgv_3d_les, "fl": jet_flame_3d_les_fl,
+             "sjet": jet_flame_3d_les, "dnn": reacting_tgv_3d_les_dnn}[path]
+    return build(MECH, n=n, dtype=dtype, device=device, **kw)
+
+
+def with_config(solver, **kw):
+    """The solver with LowMachConfig fields replaced."""
+    return dataclasses.replace(solver, config=dataclasses.replace(
+        solver.config, **kw))
+
+
+def _dynamic_smagorinsky(solver):
+    from deepflame_torch.turbulence import dynamic_smagorinsky
+    return dataclasses.replace(solver, turbulence=dynamic_smagorinsky())
+
+
+# the reference phase's cases: (label, path, keyword arguments of the case
+# function, change to the solver it returns)
+REFERENCE_CASES = (
+    ("stiff", "stiff", {}, None),
+    ("dnn", "dnn", {"compute_dtype": None}, None),
+    ("fl", "fl", {}, None),
+    ("sjet", "sjet", {}, None),
+    ("sjet mg", "sjet", {}, lambda s: with_config(s, p_precond="mg")),
+    ("stiff dynamicSmagorinsky", "stiff", {}, _dynamic_smagorinsky),
+)
 
 
 def phase_reference(torch, K) -> None:
     """Two float64 steps of each n = 8 case on the card (kernels) against
-    the port's CPU path (plain versions). The DNN case computes its MLP in
-    float64 (the f64 kernel) with the same seeded weights on both sides; the
-    face-list jet is 16 x 8 x 8 cells."""
-    for path, kw in (("stiff", {}), ("dnn", {"compute_dtype": None}),
-                     ("fl", {})):
+    the port's CPU path (plain versions): the stiff TGV; the DNN case, its
+    MLP in float64 (the f64 kernel) with the same seeded weights on both
+    sides; the face-list jet (16 x 8 x 8 cells); the structured jet (16 x 8
+    x 8) with Jacobi and with multigrid pressure preconditioning; the stiff
+    TGV with the dynamic Smagorinsky model. Then a constant-volume 0D
+    ignition on the card against the CPU."""
+    for label, path, kw, change in REFERENCE_CASES:
+        t0 = time.perf_counter()
         before = dict(K.launches)
         results = {}
         for dev in ("cuda", "cpu"):
             solver, state = _build_case(path, 8, torch.float64, device=dev,
                                         **kw)
+            if change is not None:
+                solver = change(solver)
             for _ in range(2):
                 state, _ = solver.step(state, STEP_DT[path])
             results[dev] = state
         check(all(K.launches[k] > before[k] for k in PATH_KERNELS[path]),
-              f"{path} reference step on the card did not launch "
+              f"{label} reference step on the card did not launch "
               f"{PATH_KERNELS[path]}")
         worst = 0.0
         for k in ("p", "T", "U", "Y", "rho", "ha"):
@@ -608,10 +712,39 @@ def phase_reference(torch, K) -> None:
             # round-off: sums taken in another order on the card (see
             # tests/test_torch_low_mach.py for the same bound against JAX)
             check(rel <= (1e-6 if k == "U" else 1e-8),
-                  f"{path} reference {k}: {rel:.3e}")
-        print(f"reference ({path}): n=8 float64, 2 steps on the card vs the "
+                  f"{label} reference {k}: {rel:.3e}")
+        print(f"reference ({label}): n=8 float64, 2 steps on the card vs the "
               f"CPU path: largest field deviation {worst:.3e} of the field's "
-              f"largest value")
+              f"largest value ({time.perf_counter() - t0:.1f} s)")
+    _reference_ignite(torch)
+
+
+def _reference_ignite(torch) -> None:
+    """Constant-volume ignition of the test mechanism's H2/air at 1200 K,
+    0.2 ms in 10 outputs, float64, on the card and on the CPU: T and Y
+    within 1e-8 of their largest values; T rises past 2800 K."""
+    from deepflame_torch.chemistry import (load_mechanism, make_kinetics,
+                                           make_thermo)
+    from deepflame_torch.chemistry.integrator import RosenbrockOptions
+    from deepflame_torch.chemistry.reactor import ignite
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mech = load_mechanism(MECH, device=dev)
+        Y0 = [0.0] * mech.n_species
+        for name, y in (("H2", 0.0285), ("O2", 0.2264), ("N2", 0.7451)):
+            Y0[mech.species_index(name)] = y
+        out[dev] = ignite(make_thermo(mech), make_kinetics(mech), 1200.0,
+                          101325.0, Y0, 2e-4, 10, "volume",
+                          RosenbrockOptions(rtol=1e-5, atol=1e-10))
+    errs = [max_rel_err(torch, a.cpu(), b)[1]
+            for a, b in zip(out["cuda"][1:], out["cpu"][1:])]
+    print(f"reference (constant-volume ignite): T(end) "
+          f"{float(out['cuda'][1][-1]):.2f} K on the card, "
+          f"{float(out['cpu'][1][-1]):.2f} K on the CPU; deviations T "
+          f"{errs[0]:.3e}, Y {errs[1]:.3e} of the largest values")
+    check(max(errs) <= 1e-8, "constant-volume ignite: card and CPU differ")
+    check(float(out["cuda"][1][-1]) > 2800.0,
+          "constant-volume ignite did not ignite")
 
 
 def build_jet(torch, n: int):
@@ -650,11 +783,45 @@ def _check_fl(torch, solver, state, n_cells) -> None:
           "fl: inlet and outlet mass fluxes are not of opposite sign")
 
 
+def build_sjet(torch, n: int):
+    """The structured jet at (2n, n, n) in float32, timed."""
+    t0 = time.perf_counter()
+    solver, state = _build_case("sjet", n, torch.float32)
+    torch.cuda.synchronize()
+    print(f"sjet path: structured jet, {solver.mesh.shape} cells, built in "
+          f"{time.perf_counter() - t0:.2f} s ({solver.combustion.n_bins} "
+          f"chemistry bins, {len(solver.bcs_Y)} species BCs stacked on "
+          f"{solver.bcs_Y_lanes[0][0].value[1].shape[0]} lanes, pressure "
+          f"preconditioner {solver.config.p_precond}, dt {JET_DT:g} s)")
+    return solver, state
+
+
+def _check_sjet(torch, solver, state) -> None:
+    """Structured jet state: shapes, Y summing to 1 in every cell, outward
+    mass fluxes through the inlet (the first x faces of phi[0]) and the
+    outlet (its last x faces) finite and of opposite sign."""
+    sh = solver.mesh.shape
+    check(state.T.shape == sh and state.Y.shape == (9,) + sh,
+          "sjet: state shapes")
+    check(float((state.Y.sum(0) - 1.0).abs().max()) < 1e-5,
+          "sjet: mass fractions do not sum to 1")
+    area = solver.mesh.dy * solver.mesh.dz
+    flux = {"inlet": -float(state.phi[0][0].sum()) * area,
+            "outlet": float(state.phi[0][-1].sum()) * area}
+    print(f"sjet boundary mass fluxes, outward [kg/s]: {json.dumps(flux)}")
+    check(all(math.isfinite(v) for v in flux.values()),
+          "sjet: non-finite boundary flux")
+    check(flux["inlet"] < 0.0 < flux["outlet"],
+          "sjet: inlet and outlet mass fluxes are not of opposite sign")
+
+
 def phase_main(torch, K, path: str, n: int, steps: int,
-               profile: str | None, built=None) -> dict:
-    """Warm-up steps (two on the jet, as bench.py takes, one on the TGV)
+               profile: str | None, built=None):
+    """Warm-up steps (two on the jets, as bench.py takes, one on the TGV)
     and `steps` timed steps of a main path in float32; returns the launch
-    counts of the timed steps. `built`: (solver, state) built already."""
+    counts of the timed steps and (solver, state, ms/step, diagnostics of
+    the last step) after them.
+    `built`: (solver, state) built already."""
     dt = STEP_DT[path]
     if built is None:
         t0 = time.perf_counter()
@@ -671,7 +838,7 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     else:
         solver, state = built
     n_cells = state.T.numel()
-    for i in range(2 if path == "fl" else 1):
+    for i in range(2 if path in ("fl", "sjet") else 1):
         t0 = time.perf_counter()
         state, diag = solver.step(state, dt)
         torch.cuda.synchronize()
@@ -702,6 +869,8 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     check(float((state.T - T_before).abs().max()) > 0.0, f"{path}: T did not change")
     if path == "fl":
         _check_fl(torch, solver, state, n_cells)
+    elif path == "sjet":
+        _check_sjet(torch, solver, state)
     else:
         check(state.T.shape == (n, n, n) and state.Y.shape == (9, n, n, n),
               f"{path}: state shapes")
@@ -712,7 +881,54 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     _breakdown_step(torch, solver, state, path)
     if profile or path != "stiff":
         _profile_step(torch, solver, state, ms, profile, path)
-    return counts
+    return counts, (solver, state, ms, diag)
+
+
+def phase_sjet_mg(torch, K, solver, state, jacobi_ms, jacobi_diag,
+                  jacobi_counts) -> None:
+    """One more step of the structured jet's state with multigrid pressure
+    preconditioning, synchronised and timed alone, printed beside the timed
+    Jacobi steps (ms/step, pressure-CG iterations of the last, launches per
+    step). The multigrid step must launch the Helmholtz kernel on every
+    level of its hierarchy (the shapes its calls from ops.multigrid
+    take)."""
+    import deepflame_torch.ops.multigrid as mg
+    from deepflame_torch.ops.multigrid import mg_levels
+
+    shapes, inner = set(), mg.helmholtz7_apply
+
+    def recorded(x_padded, gamma, diag, spacing):
+        shapes.add(tuple(diag.shape))
+        return inner(x_padded, gamma, diag, spacing)
+
+    K.reset_launches()
+    mg.helmholtz7_apply = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, diag = with_config(solver, p_precond="mg").step(state, JET_DT)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mg.helmholtz7_apply = inner
+    check(bool(torch.isfinite(new.T).all() and torch.isfinite(new.p).all()),
+          "sjet multigrid step: non-finite T or p")
+    out = {"jacobi": dict(ms=jacobi_ms, iters_p=int(jacobi_diag["iters_p"]),
+                          launches={k: v / STEPS
+                                    for k, v in jacobi_counts.items()}),
+           "mg": dict(ms=ms, iters_p=int(diag["iters_p"]),
+                      launches=dict(K.launches))}
+    print("sjet: a step with each pressure preconditioner (jacobi: the timed "
+          "steps' mean): " + json.dumps(out))
+    # the hierarchy's shapes (any cell and face operands give them)
+    levels = {m.shape for m, *_ in mg_levels(
+        solver.mesh, state.T, tuple(state.phi))}
+    print(f"sjet multigrid: Helmholtz kernel shapes from ops.multigrid "
+          f"{sorted(shapes)}; hierarchy {sorted(levels)}")
+    check(shapes == levels, "sjet multigrid: the Helmholtz kernel did not "
+                            "run on every level")
+    check(all(K.launches[k] > 0 for k in PATH_KERNELS["sjet"]),
+          "sjet multigrid step: a kernel of the path was not launched")
 
 
 def _check_dnn_rates(torch, solver, state) -> None:
@@ -878,11 +1094,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="profile one extra step of each main path (the DNN "
-                         "and face-list paths always are); write the "
-                         "device-time tables to FILE with _stiff, _dnn and "
-                         "_fl before its extension")
+                         "and jet paths always are); write the device-time "
+                         "tables to FILE with _stiff, _dnn, _fl and _sjet "
+                         "before its extension")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -906,23 +1123,52 @@ def main() -> int:
                   f"stack, {stores} bytes of spill stores, {loads} of "
                   f"spill loads")
 
-    jet = build_jet(torch, N_JET)
-    figures = phase_kernels(torch, K, jet[0].p_ell)
-    phase_reference(torch, K)
-    counts = {path: phase_main(torch, K, path, N_MAIN, STEPS, args.profile)
-              for path in ("stiff", "dnn")}
-    counts["fl"] = phase_main(torch, K, "fl", N_JET, STEPS, args.profile,
-                              built=jet)
-    del jet
-    phase_runtime(torch, K, N_RUNTIME)
+    seconds, t_phase = {}, time.perf_counter()
 
-    # each kernel's launches on its own path
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = round(now - t_phase, 1)
+        t_phase = now
+
+    jet = build_jet(torch, N_JET)
+    phase_done("build")
+    figures = phase_kernels(torch, K, jet[0].p_ell)
+    phase_done("kernels")
+    phase_reference(torch, K)
+    phase_done("reference")
+    counts, ms = {}, {}
+    for path in ("stiff", "dnn"):
+        counts[path], (_, _, ms[path], _) = phase_main(
+            torch, K, path, N_MAIN, STEPS, args.profile)
+        phase_done(path)
+    counts["fl"], (_, _, ms["fl"], _) = phase_main(
+        torch, K, "fl", N_JET, STEPS, args.profile, built=jet)
+    del jet
+    phase_done("fl")
+    counts["sjet"], (solver, state, ms["sjet"], diag) = phase_main(
+        torch, K, "sjet", N_JET, STEPS, args.profile,
+        built=build_sjet(torch, N_JET))
+    phase_sjet_mg(torch, K, solver, state, ms["sjet"], diag, counts["sjet"])
+    del solver, state
+    phase_done("sjet")
+    print(f"jet, {2 * N_JET} x {N_JET} x {N_JET} cells, float32, dt "
+          f"{JET_DT:g} s: structured {ms['sjet']:.2f} ms/step, face-list "
+          f"{ms['fl']:.2f} ms/step")
+    phase_runtime(torch, K, N_RUNTIME)
+    phase_done("runtime")
+
+    # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,
                                                                     "stiff")
-    kernels = [dict(name=name, launches=counts[own(name)][name], **f)
+    kernels = [dict(name=name, launches=counts[own(name)][name],
+                    launches_by_path={p: c[name] for p, c in counts.items()},
+                    **f)
                for name, f in figures.items()]
     for k in kernels:
         k["kernel_ms"] = k["ms"]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by "
+          f"phase {json.dumps(seconds)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Case builders of the port: the reacting Taylor-Green configurations that
 `__graft_entry__._build` and `_build_3d_les` build for the JAX package, the
 DNN-chemistry variant of the 3D one that `tools/bench_dnn.py` builds, and
-the 3D LES jet flame of `__graft_entry__._build_3d_jet` on a blockMesh mesh
-(the face-list path).
+the 3D LES jet flame of `__graft_entry__._build_3d_jet`, on its structured
+box (`jet_flame_3d_les`, the case `bench.py` times) and on a blockMesh mesh
+(`jet_flame_3d_les_fl`, the face-list path).
 
 Each returns (solver, state) on `device` (default: the CUDA card).
 """
@@ -25,7 +26,7 @@ from .turbulence import sigma_model
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
-           "jet_initial_fields", "jet_flame_3d_les_fl"]
+           "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl"]
 
 
 def _fresh_mixture(mech):
@@ -210,6 +211,61 @@ def jet_initial_fields(centers: np.ndarray, ns: int, species_index) -> dict:
     hot = (rr < D) & (X < 2.5 * D)
     return dict(p=np.full(X.shape[0], 101325.0), U=U, Y=Y,
                 T=np.where(hot, 1900.0, 750.0))
+
+
+def jet_flame_3d_les(mech_path: str, n: int = 64, dtype=torch.float32,
+                     rtol: float = 1e-4, atol: float = 1e-8, device=None):
+    """The 3D LES jet flame of `__graft_entry__._build_3d_jet` (BASELINE
+    config 5, `bench.py`'s jet line) on the structured box: (2n, n, n) cells
+    over 60 x 30 x 30 mm with origin (0, -15, -15) mm. Per-cell inlet
+    profiles on U_x, h, rho and each species (one FieldBCs per species; the
+    transverse velocity components fixed at 0 there), p fixed at the outlet,
+    zeroGradient elsewhere; Laminar stiff chemistry (rtol, atol, 2000 steps,
+    growth 10, 128 bins at n >= 48, else 32), the Sigma model, N2 closed as
+    1 - sum(others)."""
+    mech = load_mechanism(mech_path, device=device)
+    dev = mech.device
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    ns = mech.n_species
+    si = mech.species_index
+    Lx, Ly, Lz = 0.06, 0.03, 0.03
+    mesh = StructuredMesh.box([Lx, Ly, Lz], [2 * n, n, n],
+                              origin=(0.0, -Ly / 2, -Lz / 2), device=dev)
+    centers = np.stack([c.cpu().numpy().ravel()
+                        for c in mesh.cell_centers()], axis=1)
+    plane = (1, n, n)
+    inlet = centers[: n * n, 1:]                # the first x layer's (y, z)
+    prof = jet_inlet_profiles(inlet, ns, si)
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    u_in = f(prof["u"].reshape(plane))
+    T_in = f(prof["T"].reshape(plane))
+    Yt_in = f(prof["Y"].reshape(plane + (ns,)))
+    h_in = th.h_mass(T_in, Yt_in)
+    rho_in = th.rho(f(101325.0), T_in, Yt_in)
+
+    zg = zero_gradient()
+    zgp = (zg, zg)
+    inlet_bcs = lambda v: ((fixed_value(v), zg), zgp, zgp)
+    bcs_Y = [inlet_bcs(Yt_in[..., i]) for i in range(ns)]
+    comb = Laminar(th, kin, ode_opts=RosenbrockOptions(
+        rtol=rtol, atol=atol, max_steps=2000, grow=10.0),
+        n_bins=128 if n >= 48 else 32)
+    solver = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr, combustion=comb,
+        bcs_U=(inlet_bcs(u_in), inlet_bcs(torch.zeros_like(u_in)),
+               inlet_bcs(torch.zeros_like(u_in))),
+        bcs_p=((zg, fixed_value(101325.0)), zgp, zgp),
+        bcs_h=inlet_bcs(h_in), bcs_Y=bcs_Y, bcs_rho=inlet_bcs(rho_in),
+        config=LowMachConfig(chemistry=True, inert_index=si("N2")),
+        turbulence=sigma_model())
+    init = jet_initial_fields(centers, ns, si)
+    cells = mesh.shape
+    return solver, solver.initial_state(
+        init["p"].reshape(cells), init["T"].reshape(cells),
+        np.moveaxis(init["Y"], 1, 0).reshape((ns,) + cells),
+        np.moveaxis(init["U"], 1, 0).reshape((3,) + cells))
 
 
 def jet_flame_3d_les_fl(mech_path: str, n: int = 64, dtype=torch.float32,

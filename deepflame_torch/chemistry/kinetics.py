@@ -28,7 +28,8 @@ from ..device import resolve_device
 from .mechanism import Mechanism
 from .thermo import ThermoData
 
-__all__ = ["KineticsData", "make_kinetics", "production_rates"]
+__all__ = ["KineticsData", "make_kinetics", "production_rates",
+           "mass_production_rates", "heat_release_rate"]
 
 _LOG10 = 2.302585092994046
 
@@ -154,3 +155,15 @@ def production_rates(kin: KineticsData, thermo: ThermoData, T, rho, Y):
     r_f = torch.exp(ln_rf) * factor
     r_r = torch.exp(ln_rr) * factor * kin.reversible
     return (r_f - r_r) @ kin.d_nu
+
+
+def mass_production_rates(kin: KineticsData, thermo: ThermoData, T, rho, Y):
+    """RR [kg/m^3/s]: the molar rates times the molecular weights."""
+    return production_rates(kin, thermo, T, rho, Y) * kin.W
+
+
+def heat_release_rate(kin: KineticsData, thermo: ThermoData, T, rho, Y):
+    """Qdot [J/m^3/s] = -sum_i h_i(T) wdot_i (molar basis)."""
+    wdot = production_rates(kin, thermo, T, rho, Y)
+    h_molar = thermo.h_RT(T) * (GAS_CONSTANT * T[..., None])   # J/kmol
+    return -(h_molar * wdot).sum(-1)

@@ -1,7 +1,7 @@
 """0D reactor and the cell-batch chemistry solve used by the CFD solver.
 
 Port of deepflame_tpu/chemistry/reactor.py: `ignite` (the df0DFoam
-constant-pressure reactor) and `solve_chemistry`, which advances every cell
+constant-pressure or constant-volume reactor) and `solve_chemistry`, which advances every cell
 by dt at constant pressure and returns RR_i = rho (Y_new - Y_old)/dt and the
 heat release. Load balancing is the JAX package's data layout: an explicit
 RK23 fast tier for every lane, then the rejected (stiff) lanes sorted by
@@ -24,7 +24,8 @@ from .integrator import (RosenbrockOptions, rk23_attempt_batched,
 from .kinetics import KineticsData, production_rates
 from .thermo import ThermoData
 
-__all__ = ["constant_pressure_rhs_batched", "ignite", "solve_chemistry",
+__all__ = ["constant_pressure_rhs_batched", "constant_volume_rhs",
+           "constant_volume_rhs_batched", "ignite", "solve_chemistry",
            "ChemistryResult"]
 
 
@@ -42,15 +43,47 @@ def constant_pressure_rhs_batched(thermo: ThermoData, kin: KineticsData, p):
     return rhs
 
 
+def constant_volume_rhs_batched(thermo: ThermoData, kin: KineticsData, rho):
+    """Batched RHS for states s = (L, 1+ns) at fixed per-lane density rho
+    (L,): the energy equation in internal energy, u_i = h_i - R T (molar)."""
+    def rhs(s):
+        T, Y = s[:, 0], s[:, 1:]
+        wdot = production_rates(kin, thermo, T, rho, Y)       # (L, ns)
+        dY = wdot * kin.W / rho[:, None]
+        u_molar = (thermo.h_RT(T) - 1.0) * (GAS_CONSTANT * T[:, None])
+        cv = thermo.cv_mass(T, Y)
+        dT = -(u_molar * wdot).sum(1) / (rho * cv)
+        return torch.cat([dT[:, None], dY], dim=1)
+    return rhs
+
+
+def constant_volume_rhs(thermo: ThermoData, kin: KineticsData, rho):
+    """RHS for one state s = [T, Y...] at fixed density rho (a number or a
+    0-d tensor)."""
+    rho = torch.as_tensor(rho, dtype=thermo.W.dtype,
+                          device=thermo.W.device).reshape(1)
+    rhs_b = constant_volume_rhs_batched(thermo, kin, rho)
+    return lambda s: rhs_b(s[None])[0]
+
+
 def ignite(thermo: ThermoData, kin: KineticsData, T0, p0, Y0, t_end,
-           n_out: int = 200, opts: RosenbrockOptions = RosenbrockOptions()):
-    """Constant-pressure 0D reactor trajectory: (times, T(t), Y(t)) at n_out
-    points. T0, p0: floats; Y0: (ns,) mass fractions."""
+           n_out: int = 200, const: str = "pressure",
+           opts: RosenbrockOptions = RosenbrockOptions()):
+    """0D reactor trajectory: (times, T(t), Y(t)) at n_out points.
+    const: 'pressure' (HP reactor) or 'volume' (UV reactor, p evolves).
+    T0, p0: floats; Y0: (ns,) mass fractions."""
     dtype, device = thermo.W.dtype, thermo.W.device
     Y0 = torch.as_tensor(Y0, dtype=dtype, device=device)
-    s = torch.cat([torch.tensor([float(T0)], dtype=dtype, device=device), Y0])
-    rhs_b = constant_pressure_rhs_batched(
-        thermo, kin, torch.tensor([float(p0)], dtype=dtype, device=device))
+    T0 = torch.tensor([float(T0)], dtype=dtype, device=device)
+    p0 = torch.tensor([float(p0)], dtype=dtype, device=device)
+    s = torch.cat([T0, Y0])
+    if const == "pressure":
+        rhs_b = constant_pressure_rhs_batched(thermo, kin, p0)
+    elif const == "volume":
+        rhs_b = constant_volume_rhs_batched(thermo, kin,
+                                            thermo.rho(p0, T0, Y0[None]))
+    else:
+        raise ValueError(const)
     rhs = lambda y: rhs_b(y[None])[0]
     dt_out = float(t_end) / n_out
     traj = []

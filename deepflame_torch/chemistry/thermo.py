@@ -84,9 +84,20 @@ class ThermoData:
     def cp_mass(self, T, Y):
         return (Y * self.cp_species(T)).sum(-1)
 
+    def cv_mass(self, T, Y):
+        return self.cp_mass(T, Y) - GAS_CONSTANT / self.W_mix(Y)
+
     def h_mass(self, T, Y):
         """Absolute (chemical + sensible) enthalpy [J/kg]."""
         return (Y * self.h_species(T)).sum(-1)
+
+    def e_mass(self, T, Y):
+        """Absolute internal energy [J/kg]: e = h - R T / W."""
+        return self.h_mass(T, Y) - GAS_CONSTANT * T / self.W_mix(Y)
+
+    def hs_mass(self, T, Y):
+        """Sensible enthalpy [J/kg]."""
+        return self.h_mass(T, Y) - (Y * self.h_formation).sum(-1)
 
     def psi(self, T, Y):
         """Compressibility psi = rho/p = W/(R T) [s^2/m^2]."""
@@ -95,7 +106,14 @@ class ThermoData:
     def rho(self, p, T, Y):
         return p * self.psi(T, Y)
 
-    # ---- inverse property solve (Newton, fixed iteration count) ----
+    def gamma(self, T, Y):
+        cp = self.cp_mass(T, Y)
+        return cp / (cp - GAS_CONSTANT / self.W_mix(Y))
+
+    def sound_speed(self, T, Y):
+        return torch.sqrt(self.gamma(T, Y) / self.psi(T, Y))
+
+    # ---- inverse property solves (Newton, fixed iteration count) ----
     def T_from_h(self, h, Y, T_guess, iters: int = 8):
         """Temperature from absolute enthalpy: 8 Newton steps from the
         previous temperature (quadratic convergence, cp > 0)."""
@@ -103,6 +121,14 @@ class ThermoData:
         for _ in range(iters):
             f = self.h_mass(T, Y) - h
             T = torch.clamp(T - f / self.cp_mass(T, Y), self.T_min, self.T_max)
+        return T
+
+    def T_from_e(self, e, Y, T_guess, iters: int = 8):
+        """Temperature from absolute internal energy (Newton on cv)."""
+        T = torch.clamp(T_guess, self.T_min, self.T_max)
+        for _ in range(iters):
+            f = self.e_mass(T, Y) - e
+            T = torch.clamp(T - f / self.cv_mass(T, Y), self.T_min, self.T_max)
         return T
 
 

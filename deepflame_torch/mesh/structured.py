@@ -10,6 +10,11 @@ splits every discrete operator into an implicit part (homogeneous ghosts) and
 a source part (b). Kinds: fixedValue, zeroGradient, fixedGradient, cyclic,
 symmetry, empty, inletOutlet, affine. Processor (inter-shard) boundaries are
 multi-device and not part of this port yet.
+
+Fields that share one batched solve but not their BCs (one FieldBCs per
+species, per velocity component) take `stack_bcs`: the BCs of the lanes
+stacked into affine BCs whose (a, b) carry the lane axis, so that one padded
+tensor holds every lane's ghosts.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["StructuredMesh", "BC", "FieldBCs", "pad_field", "extend_padded",
-           "fixed_value", "zero_gradient", "cyclic", "fixed_gradient",
-           "symmetry", "empty"]
+           "stack_bcs", "bcs_batch_shape", "fixed_value", "zero_gradient",
+           "cyclic", "fixed_gradient", "symmetry", "empty"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +132,65 @@ def empty() -> BC:
 
 # FieldBCs: ((x_lo, x_hi), (y_lo, y_hi), (z_lo, z_hi))
 FieldBCs = tuple
+
+
+def _same_bc(a: BC, b: BC) -> bool:
+    """Same kind and the same value (one object, or equal numbers)."""
+    if a.kind != b.kind:
+        return False
+    if a.value is b.value:
+        return True
+    return (isinstance(a.value, (int, float))
+            and isinstance(b.value, (int, float)) and a.value == b.value)
+
+
+def _as_slab(v, mesh: StructuredMesh, dtype):
+    """A ghost coefficient (number or array) as a 3-D tensor on the mesh."""
+    t = torch.as_tensor(v, dtype=dtype, device=mesh.device)
+    return t.reshape((1,) * (3 - t.dim()) + tuple(t.shape))
+
+
+def stack_bcs(bc_sets, mesh: StructuredMesh, dtype) -> FieldBCs:
+    """One FieldBCs for a batch of fields (S, nx, ny, nz) from the FieldBCs
+    of each lane. A face whose BCs agree on every lane keeps that BC; any
+    other becomes BC("affine", (a, b)) with a and b of shape (S, ...)
+    holding each lane's ghost relation, as BC.coeffs gives it (for an x face
+    (S, 1, ny, nz) or (S, 1, 1, 1)). Cyclic faces must be cyclic on every
+    lane."""
+    ref = bc_sets[0]
+    out = []
+    for ax in range(3):
+        pair = []
+        for side, sgn in ((0, -1), (1, +1)):
+            bcs = [b[ax][side] for b in bc_sets]
+            cyc = [bc.kind == "cyclic" for bc in bcs]
+            if any(cyc) and not all(cyc):
+                raise ValueError(f"axis {ax} side {side}: cyclic on some "
+                                 "lanes and not on others")
+            if all(_same_bc(ref[ax][side], bc) for bc in bcs):
+                pair.append(ref[ax][side])
+                continue
+            ab = [bc.coeffs(mesh.spacing[ax], sgn) for bc in bcs]
+            stacked = []
+            for k in range(2):
+                vals = [_as_slab(c[k], mesh, dtype) for c in ab]
+                shape = torch.broadcast_shapes(*(v.shape for v in vals))
+                stacked.append(torch.stack([v.expand(shape) for v in vals]))
+            pair.append(BC("affine", tuple(stacked)))
+        out.append(tuple(pair))
+    return tuple(out)
+
+
+def bcs_batch_shape(bcs: FieldBCs) -> tuple:
+    """Leading (lane) dimensions that stacked BCs give a padded field."""
+    shape = ()
+    for pair in bcs:
+        for bc in pair:
+            if bc.kind == "affine":
+                for v in bc.value:
+                    if isinstance(v, torch.Tensor) and v.dim() > 3:
+                        shape = torch.broadcast_shapes(shape, v.shape[:-3])
+    return tuple(shape)
 
 
 def _slab(f, axis: int, start: int, stop: int):

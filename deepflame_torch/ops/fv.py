@@ -5,7 +5,9 @@ implicit equations are matrix-free `FvMatrix` operators whose 7-point
 coefficients are also kept analytically (`StencilPart`), so that
 `FvMatrix.stencil()` gives (D, lo, hi) cell coefficients with the boundary
 ghosts folded into D. The Krylov matvec is then one call of the stencil
-kernel (`ops.kernels.stencil7_apply`) and diag(A) = D is exact.
+kernel (`ops.kernels.stencil7_apply`) and diag(A) = D is exact; `diag()`
+reads it there, and takes the JAX package's coloring probes only where a
+term has no stencil.
 
 Fields are (..., nx, ny, nz): operators act on the last three dimensions, so
 one FvMatrix can carry a leading batch of species or velocity components
@@ -20,12 +22,14 @@ import dataclasses
 
 import torch
 
-from ..mesh.structured import FieldBCs, StructuredMesh, extend_padded, pad_field
+from ..mesh.structured import (FieldBCs, StructuredMesh, bcs_batch_shape,
+                               extend_padded, pad_field)
 from .kernels import stencil7_apply
 
 __all__ = [
     "FvMatrix", "StencilPart", "face_pair", "interpolate", "interpolate_cubic",
-    "grad", "div_flux", "div_explicit", "limited_face_values", "nvd_limiter",
+    "grad", "flux_of", "div_flux", "div_explicit", "laplacian_explicit",
+    "snGrad_boundary", "limited_face_values", "nvd_limiter",
     "multivariate_limiter", "fvm_ddt", "fvm_div", "fvm_laplacian",
     "fvm_source_implicit",
 ]
@@ -95,6 +99,14 @@ def grad(f, bcs: FieldBCs, mesh: StructuredMesh):
                         for ax, h in enumerate(mesh.spacing)])
 
 
+def flux_of(rho_u, bcs_u, mesh: StructuredMesh):
+    """Face-normal flux density per axis from a cell vector field rho_u
+    (3, nx, ny, nz) with per-component BCs: (nx+1, ny, nz), (nx, ny+1, nz),
+    (nx, ny, nz+1)."""
+    return tuple(interpolate(pad_field(rho_u[ax], bcs_u[ax], mesh), ax)
+                 for ax in range(3))
+
+
 def div_flux(phi, mesh: StructuredMesh):
     """Cell divergence of face fluxes: sum_ax (phi_hi - phi_lo)/h."""
     out = 0.0
@@ -112,6 +124,35 @@ def div_explicit(phi, psi, bcs: FieldBCs, mesh: StructuredMesh,
         fv = limited_face_values(P, phi[ax], ax, scheme, limiter_k, bcs)
         out = out + _face_diff(phi[ax] * fv, ax) / h
     return out
+
+
+def _gamma_ax(gamma_f, ax: int):
+    """Per-axis diffusivity: a scalar or a per-axis tuple of face arrays."""
+    return gamma_f[ax] if isinstance(gamma_f, (tuple, list)) else gamma_f
+
+
+def laplacian_explicit(gamma_f, f, bcs: FieldBCs, mesh: StructuredMesh):
+    """fvc::laplacian(gamma, f); gamma_f: per-axis face arrays or a scalar."""
+    P = pad_field(f, bcs, mesh)
+    out = 0.0
+    for ax, h in enumerate(mesh.spacing):
+        own, nei = face_pair(P, ax)
+        out = out + _face_diff(_gamma_ax(gamma_f, ax) * (nei - own) / h, ax) / h
+    return out
+
+
+def snGrad_boundary(f, bcs: FieldBCs, mesh: StructuredMesh):
+    """Surface-normal gradients on the six boundary patches, keyed (axis,
+    side), each the one face layer of that side."""
+    P = pad_field(f, bcs, mesh)
+    grads = {}
+    for ax, h in enumerate(mesh.spacing):
+        own, nei = face_pair(P, ax)
+        g = (nei - own) / h
+        n = g.shape[ax - 3]
+        grads[(ax, 0)] = _sl(g, ax, 0, 1)
+        grads[(ax, 1)] = _sl(g, ax, n - 1, n)
+    return grads
 
 
 # ------------------------------------------------------------ face-value schemes
@@ -238,19 +279,42 @@ class FvMatrix:
         return FvMatrix(self.mesh, self.bcs, self.terms + other.terms,
                         self.source + other.source, parts)
 
+    def __sub__(self, other: "FvMatrix") -> "FvMatrix":
+        assert self.bcs is other.bcs or self.bcs == other.bcs
+        neg = [(lambda P, L=L: -L(P)) for L in other.terms]
+        parts = None
+        if self.parts is not None and other.parts is not None:
+            parts = self.parts + [
+                None if p is None else
+                StencilPart(d=-p.d, lo=tuple(-c for c in p.lo),
+                            hi=tuple(-c for c in p.hi))
+                for p in other.parts]
+        return FvMatrix(self.mesh, self.bcs, self.terms + neg,
+                        self.source - other.source, parts)
+
     def with_source(self, s) -> "FvMatrix":
         return FvMatrix(self.mesh, self.bcs, self.terms, self.source + s,
                         self.parts)
 
+    def _shape(self) -> tuple:
+        """Shape of the equation: the lanes of its source and of its BCs,
+        then the mesh."""
+        batch = torch.broadcast_shapes(tuple(self.source.shape[:-3]),
+                                       bcs_batch_shape(self.bcs))
+        return tuple(batch) + self.mesh.shape
+
     def stencil(self):
         """(D, lo, hi) cell coefficients with BCs folded into D, all of one
         shape (the batch shape of the equation), or None when a term has no
-        stencil. Cyclic axes stay in lo/hi: the stencil wraps them exactly."""
+        stencil. Cyclic axes stay in lo/hi: the stencil wraps them exactly.
+        A BC's ghost coefficient a may differ per lane (stacked BCs)."""
         if self.parts is None or any(p is None for p in self.parts):
             return None
-        D = torch.zeros_like(self.source)
-        lo = [torch.zeros_like(self.source) for _ in range(3)]
-        hi = [torch.zeros_like(self.source) for _ in range(3)]
+        zeros = torch.zeros(self._shape(), dtype=self.source.dtype,
+                            device=self.source.device)
+        D = zeros
+        lo = [zeros for _ in range(3)]
+        hi = [zeros for _ in range(3)]
         for p in self.parts:
             D = D + p.d
             for ax in range(3):
@@ -292,13 +356,58 @@ class FvMatrix:
         if all(bc.kind in _HOMOGENEOUS_KINDS for pair in self.bcs
                for bc in pair):
             return self.source
-        Pb = pad_field(torch.zeros(self.mesh.shape, dtype=self.source.dtype,
+        Pb = pad_field(torch.zeros(self._shape(), dtype=self.source.dtype,
                                    device=self.source.device),
                        self.bcs, self.mesh, bc_only=True)
         out = self.source
         for L in self.terms:
             out = out - L(Pb)
         return out
+
+    def diag(self):
+        """Exact diagonal of A: D of the folded stencil where every term has
+        one, else the JAX package's coloring probes (cells of one color
+        along every axis are never neighbours, so masked matvecs recover
+        diag(A); period 2 per axis, 3 or n on an odd cyclic axis)."""
+        st = self.stencil()
+        if st is not None:
+            return st[0]
+        shape = self._shape()
+        periods = []
+        for ax, n in enumerate(self.mesh.shape):
+            if self.bcs[ax][0].kind != "cyclic" or n % 2 == 0 or n == 1:
+                periods.append(2 if n > 1 else 1)
+            else:
+                periods.append(3 if n % 3 == 0 else n)
+        dev, dtype = self.source.device, self.source.dtype
+        idx = torch.meshgrid(*(torch.arange(n, device=dev)
+                               for n in self.mesh.shape), indexing="ij")
+        d = torch.zeros(shape, dtype=dtype, device=dev)
+        for ci in range(periods[0]):
+            for cj in range(periods[1]):
+                for ck in range(periods[2]):
+                    chi = ((idx[0] % periods[0] == ci)
+                           & (idx[1] % periods[1] == cj)
+                           & (idx[2] % periods[2] == ck)).to(dtype)
+                    d = d + self.apply(chi.expand(shape)) * chi
+        return d
+
+    def _matvec(self, x):
+        """A(x): the stencil kernel where every term has a stencil."""
+        st = self.stencil()
+        if st is None:
+            return self.apply(x)
+        D, lo, hi = st
+        return stencil7_apply(torch.broadcast_to(x, D.shape).contiguous(),
+                              D, lo, hi)
+
+    def H(self, x):
+        """OpenFOAM's H operator: b - (A(x) - diag(A) x)."""
+        return self.rhs() - (self._matvec(x) - self.diag() * x)
+
+    def residual(self, x):
+        """b - A(x)."""
+        return self.rhs() - self._matvec(x)
 
 
 # ----------------------------------------------------------------- fvm builders

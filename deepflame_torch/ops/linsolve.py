@@ -12,14 +12,19 @@ and its own iteration count.
 
 The loop is Python and reads "any lane active" back to the host every
 `CHECK_EVERY` trips; trips after a lane stopped are exact no-ops for it, so
-results and counts match the JAX loop.
+results and counts match the JAX loop. Inside `parallel.context.compensated()`
+the per-lane reductions are compensated sums (`ops.compensated.sum2`), as the
+JAX package's gsum is there.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel.context import compensated_on
+from .compensated import sum2
 from .kernels import stencil7_apply
 
 __all__ = ["SolverResult", "cg", "bicgstab", "solve_fvmatrix"]
@@ -36,7 +41,15 @@ class SolverResult(NamedTuple):
 
 
 def _vsum(x, nd):
+    if compensated_on():
+        return sum2(x, nd=nd)
     return x.sum(dim=tuple(range(-nd, 0)))
+
+
+def _vmean(x, nd):
+    if compensated_on():
+        return sum2(x, nd=nd) / math.prod(x.shape[x.dim() - nd:])
+    return x.mean(dim=tuple(range(-nd, 0)))
 
 
 def _dot(a, b, nd):
@@ -59,7 +72,7 @@ def _safe_div(a, b):
 
 def _norm_factor(A, b, x, nd):
     """OpenFOAM lduMatrix normFactor: ||A xref - b|| with xref = mean(x)."""
-    xbar = _b(x.mean(dim=tuple(range(-nd, 0))), nd) * torch.ones_like(x)
+    xbar = _b(_vmean(x, nd), nd) * torch.ones_like(x)
     Axbar = A(xbar)
     norm = _vsum((A(x) - Axbar).abs(), nd) + _vsum((b - Axbar).abs(), nd)
     return torch.clamp(norm, min=torch.finfo(b.dtype).tiny)

@@ -4,8 +4,9 @@ Port of deepflame_tpu/runtime/factory.py (the reference solvers'
 createFields.H: runtime selection of thermo, combustion model and
 turbulence model from the case dictionaries), for what the port has:
 laminar, noCombustion and DNN combustion; laminar flow and the Smagorinsky,
-WALE and Sigma LES models; the low-Mach solver. Every other selection
-raises NotImplementedError naming the ROADMAP item that ports it.
+WALE, Sigma and dynamic Smagorinsky LES models; the low-Mach solver. Every
+other selection raises NotImplementedError naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -17,13 +18,14 @@ from ..chemistry.dnn import load_npz_checkpoint
 from ..chemistry.integrator import RosenbrockOptions
 from ..combustion import DNNChemistry, Laminar, NoCombustion
 from ..solvers.low_mach import LowMachConfig, LowMachSolver
-from ..turbulence import sigma_model, smagorinsky, wale
+from ..turbulence import dynamic_smagorinsky, sigma_model, smagorinsky, wale
 from .config import CaseConfig
 
 __all__ = ["build_chemistry", "build_combustion", "build_turbulence",
            "build_low_mach_solver", "build_high_speed_solver"]
 
-_LES = {"Smagorinsky": smagorinsky, "WALE": wale, "Sigma": sigma_model}
+_LES = {"Smagorinsky": smagorinsky, "WALE": wale, "Sigma": sigma_model,
+        "dynamicSmagorinsky": dynamic_smagorinsky}
 
 
 def _dtype(case: CaseConfig):
@@ -66,9 +68,6 @@ def build_turbulence(case: CaseConfig):
     if t.simulation_type == "laminar":
         return None
     if t.simulation_type == "LES":
-        if t.les_model == "dynamicSmagorinsky":
-            raise NotImplementedError("LES model dynamicSmagorinsky: left "
-                                      "out of ROADMAP A6")
         if t.les_model not in _LES:
             raise ValueError(f"unknown LES model {t.les_model!r}")
         return _LES[t.les_model](Pr_t=t.Pr_t, Sc_t=t.Sc_t)

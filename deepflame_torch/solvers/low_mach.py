@@ -7,21 +7,30 @@ Port of deepflame_tpu/solvers/low_mach.py (dfLowMachFoam parity). One step:
         rhoEqn -> UEqn -> YEqn -> EEqn -> correctThermo
         while pressure correctors: pEqn
 
-on the structured mesh, with shared boundary conditions for the species and
-for the velocity components. The species (and the three velocity
-components) are solved as one batched Krylov solve over a leading dimension,
-each lane with its own convergence and iteration count, as the JAX package's
-vmapped solves are. Matvecs go through the stencil kernel; the pressure CG
-matvec through the Helmholtz kernel (on the CPU, their plain versions).
+on the structured mesh. The species (and the three velocity components) are
+solved as one batched Krylov solve over a leading dimension, each lane with
+its own convergence and iteration count, as the JAX package's vmapped solves
+are. Where the lanes have their own boundary conditions (`bcs_Y` a list of
+FieldBCs, one per species; velocity components whose BCs differ) the JAX
+package solves the fields one after another; here their BCs are stacked
+along the lane axis (`mesh.structured.stack_bcs`) and the solve stays one
+batch, one stencil-kernel launch per matvec, each lane computing what the
+sequential solve computes. The momentum rAU comes from lane 0's diagonal, as
+the JAX package's comes from component 0's.
+
+Matvecs go through the stencil kernel; the pressure CG matvec through the
+Helmholtz kernel (on the CPU, their plain versions), preconditioned by
+Jacobi or by a geometric-multigrid V-cycle whose levels run the Helmholtz
+kernel too (`LowMachConfig.p_precond`).
 
 Not in this slice: spray sources, RAS models and combustion-model scalar
-transport, per-species or per-component boundary conditions, multigrid
-pressure preconditioning, the transport-surrogate hook and processor
-(multi-device) boundaries.
+transport, and processor (multi-device) boundaries. The JAX config's
+`use_pallas` chose a TPU kernel and has no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -31,32 +40,17 @@ from ..chemistry.transport import TransportData
 from ..combustion.basic import CombustionModel
 from ..mesh.energy_bcs import resolve_energy_bcs
 from ..mesh.structured import (StructuredMesh, cyclic, empty, pad_field,
-                               zero_gradient)
+                               stack_bcs, zero_gradient)
 from ..ops.fv import (_face_diff, div_explicit, div_flux, face_pair,
                       fvm_ddt, fvm_div, fvm_laplacian, fvm_source_implicit,
                       grad, interpolate, interpolate_cubic,
                       multivariate_limiter)
 from ..ops.kernels import helmholtz7_apply, stencil7_apply
 from ..ops.linsolve import cg, solve_fvmatrix
+from ..ops.multigrid import make_mg_preconditioner
 from ..parallel.context import gmax, gmean, gmin
 
 __all__ = ["LowMachConfig", "LowMachState", "LowMachSolver"]
-
-
-def _same_bc_pair(a, b) -> bool:
-    if a.kind != b.kind:
-        return False
-    if isinstance(a.value, (int, float)) and isinstance(b.value, (int, float)):
-        return a.value == b.value
-    return False
-
-
-def _same_bcs(*bc_sets) -> bool:
-    """True when the FieldBCs are structurally identical (same kinds, same
-    scalar values), so the fields can share one batched solve."""
-    ref = bc_sets[0]
-    return all(_same_bc_pair(ref[ax][side], other[ax][side])
-               for other in bc_sets[1:] for ax in range(3) for side in (0, 1))
 
 
 class LowMachState(NamedTuple):
@@ -94,6 +88,7 @@ class LowMachConfig:
     y_tol: float = 1e-9
     max_iter_u: int = 100
     max_iter_p: int = 500
+    p_precond: str = "jacobi"          # jacobi | mg (geometric multigrid)
     unity_lewis: bool = False
     solve_energy: bool = True          # False freezes ha (and so T)
     chemistry: bool = True
@@ -113,10 +108,14 @@ class LowMachSolver:
     bcs_U: tuple          # per-component FieldBCs (3,)
     bcs_p: Any
     bcs_h: Any
-    bcs_Y: Any            # one FieldBCs shared by the species
+    bcs_Y: Any            # one FieldBCs shared by the species, or a list
+                          # of FieldBCs, one per species
     bcs_rho: Any
     config: LowMachConfig = LowMachConfig()
     turbulence: Any = None     # LESModel or None (laminar)
+    thermo_tran_nn: Any = None  # callable (T, p, Yt) -> dict of any of mu,
+                                # alpha, rhoD (species first) overriding the
+                                # transport fits (a transport surrogate)
 
     def __post_init__(self):
         dev = self.mesh.device
@@ -125,11 +124,9 @@ class LowMachSolver:
             if t.device != dev and not (t.device.type == dev.type == "cuda"):
                 raise ValueError(f"{name} tables are on {t.device}, the mesh "
                                  f"on {dev}")
-        if isinstance(self.bcs_Y, list):
-            raise NotImplementedError("per-species boundary conditions")
-        if not _same_bcs(*self.bcs_U):
-            raise NotImplementedError("per-component velocity boundary "
-                                      "conditions")
+        if self.config.p_precond not in ("jacobi", "mg"):
+            raise ValueError(f"p_precond {self.config.p_precond!r}: jacobi "
+                             "or mg")
 
     @property
     def device(self) -> torch.device:
@@ -140,6 +137,20 @@ class LowMachSolver:
         return self.thermo.W.dtype
 
     # -------------------------------------------------------------- helpers
+    @functools.cached_property
+    def bcs_Y_lanes(self):
+        """The species' BCs for their batched solve: `bcs_Y` itself when the
+        species share it, else the list stacked along the lane axis."""
+        if isinstance(self.bcs_Y, list):
+            return stack_bcs(self.bcs_Y, self.mesh, self.dtype)
+        return self.bcs_Y
+
+    @functools.cached_property
+    def bcs_U_lanes(self):
+        """The velocity components' BCs for their batched solve (stacked
+        where the components' BCs differ)."""
+        return stack_bcs(list(self.bcs_U), self.mesh, self.dtype)
+
     @property
     def bcs_coeff(self):
         """Value-neutral BCs for interpolating coefficient fields to faces:
@@ -172,6 +183,11 @@ class LowMachSolver:
             Dm = self.transport.mix_diff_coeffs(T, p, X, Yt)
             rho = self.thermo.rho(p, T, Yt)
             rhoD = torch.movedim(rho[..., None] * Dm, -1, 0)
+        if self.thermo_tran_nn is not None:
+            nn = self.thermo_tran_nn(T, p, Yt)
+            mu = nn.get("mu", mu)
+            alpha = nn.get("alpha", alpha)
+            rhoD = nn.get("rhoD", rhoD)
         return mu, alpha, rhoD
 
     def initial_state(self, p, T, Y, U=None, time: float = 0.0) -> LowMachState:
@@ -243,7 +259,7 @@ class LowMachSolver:
             lim_mv = None
             scheme_h = "upwind" if cfg.mv_convection == "upwind" else cfg.div_scheme
             if ns > 1:
-                bcs_y = self.bcs_Y
+                bcs_y = self.bcs_Y_lanes
                 gY = grad(Y, bcs_y, mesh)                     # (3, ns, ...)
                 sumYDiff = (rhoD[None] * gY).sum(1)
                 phiUc = tuple(interpolate(pad_field(sumYDiff[ax], self.bcs_coeff,
@@ -346,7 +362,7 @@ class LowMachSolver:
 
     def _momentum(self, rho, rho_old, U, U_old, phi, p, mu, dt, stats=None):
         """Implicit momentum predictor: returns (U, HbyA, rAU). The three
-        components share their BCs and are solved as one batch."""
+        components are solved as one batch; rAU is lane 0's."""
         mesh = self.mesh
         cfg = self.config
         dtype = p.dtype
@@ -364,7 +380,7 @@ class LowMachSolver:
         srcs = torch.stack([-gp[c] + corrs[c]
                             + (rho * cfg.gravity[c] if cfg.gravity[c] else 0.0)
                             for c in range(3)])
-        bcs_u = self.bcs_U[0]
+        bcs_u = self.bcs_U_lanes
         eqn = (fvm_ddt(rho, U_old, dt, mesh, bcs_u, coeff_old=rho_old)
                + fvm_div(phi, U, mesh, bcs_u, cfg.div_scheme_U or cfg.div_scheme)
                + fvm_laplacian(mu_f, mesh, bcs_u, dtype=dtype, sign=-1.0)
@@ -402,12 +418,14 @@ class LowMachSolver:
                        stats=None):
         """Compressible pressure correctors: returns (p, phi, U, dpdt, rho,
         last initial residual). The CG matvec is the Helmholtz kernel on the
-        homogeneously padded iterate; the Jacobi preconditioner is the exact
-        stencil diagonal."""
+        homogeneously padded iterate; the preconditioner is Jacobi on the
+        exact stencil diagonal or one multigrid V-cycle, whose hierarchy is
+        built at the first corrector and shared by the others."""
         mesh = self.mesh
         cfg = self.config
         dtype = p.dtype
         p_res = torch.zeros((), dtype=dtype, device=p.device)
+        M_inv_mg = None
         for _ in range(cfg.n_corr):
             rho = rho_fn(p)
             rho_f = tuple(interpolate(pad_field(rho, self.bcs_rho, mesh), ax)
@@ -438,12 +456,18 @@ class LowMachSolver:
             apply_A = lambda x: helmholtz7_apply(
                 pad_field(x, self.bcs_p, mesh, homogeneous=True),
                 rhorAUf, coeff_d, mesh.spacing)
-            d_p = eqn_p.stencil()[0]
-            d_inv = 1.0 / torch.where(d_p.abs() > 1e-300, d_p,
-                                      torch.ones_like(d_p))
-            res_p = cg(apply_A, eqn_p.rhs(), p, lambda r: d_inv * r,
-                       tol=cfg.p_tol, rel_tol=cfg.p_rel_tol,
-                       max_iter=cfg.max_iter_p)
+            if cfg.p_precond == "mg":
+                if M_inv_mg is None:
+                    M_inv_mg = make_mg_preconditioner(mesh, self.bcs_p,
+                                                      coeff_d, rhorAUf, dtype)
+                M_inv = M_inv_mg
+            else:
+                d_p = eqn_p.stencil()[0]
+                d_inv = 1.0 / torch.where(d_p.abs() > 1e-300, d_p,
+                                          torch.ones_like(d_p))
+                M_inv = lambda r: d_inv * r
+            res_p = cg(apply_A, eqn_p.rhs(), p, M_inv, tol=cfg.p_tol,
+                       rel_tol=cfg.p_rel_tol, max_iter=cfg.max_iter_p)
             p = res_p.x
             p_res = res_p.initial_residual
             if stats is not None:

@@ -1,3 +1,4 @@
-from .les import LESModel, smagorinsky, wale, sigma_model
+from .les import LESModel, dynamic_smagorinsky, smagorinsky, sigma_model, wale
 
-__all__ = ["LESModel", "smagorinsky", "wale", "sigma_model"]
+__all__ = ["LESModel", "smagorinsky", "wale", "sigma_model",
+           "dynamic_smagorinsky"]

@@ -1,10 +1,11 @@
-"""LES subgrid-scale turbulence models: Smagorinsky, WALE and Sigma.
+"""LES subgrid-scale turbulence models: Smagorinsky, WALE, Sigma and dynamic
+Smagorinsky.
 
 Port of deepflame_tpu/turbulence/les.py, on structured and face-list meshes
-(the dynamic Smagorinsky model, which needs a structured test filter, is a
-later slice). All models are local tensor algebra on the velocity gradient,
-with the cube-root cell volume as filter width; the solver consumes
-mu_t through the effective coefficients mu + mu_t, alpha + mu_t/Pr_t and
+(dynamic Smagorinsky needs the structured 27-point test filter, so it runs on
+structured meshes only, as in the JAX package). All models are local
+tensor algebra on the velocity gradient, with the cube-root cell volume as
+filter width; the solver consumes mu_t through the effective coefficients mu + mu_t, alpha + mu_t/Pr_t and
 rhoD + mu_t/Sc_t. The Sigma model's singular values come from the analytic
 eigenvalues of the symmetric 3x3 field g^T g, evaluated elementwise.
 """
@@ -15,16 +16,17 @@ import math
 
 import torch
 
-from ..mesh.structured import StructuredMesh
+from ..mesh.structured import StructuredMesh, pad_field
 from ..ops.fv import grad
 
-__all__ = ["LESModel", "smagorinsky", "wale", "sigma_model"]
+__all__ = ["LESModel", "smagorinsky", "wale", "sigma_model",
+           "dynamic_smagorinsky"]
 
 
 @dataclasses.dataclass(frozen=True)
 class LESModel:
-    """SGS model selector. kind: Smagorinsky | WALE | Sigma. Filter width:
-    cube-root cell volume."""
+    """SGS model selector. kind: Smagorinsky | WALE | Sigma |
+    dynamicSmagorinsky. Filter width: cube-root cell volume."""
     kind: str = "Smagorinsky"
     Cs: float = 0.167
     Cw: float = 0.325
@@ -41,7 +43,9 @@ class LESModel:
 
     def mu_t(self, rho, U, bcs_U, mesh: StructuredMesh):
         delta = (mesh.dx * mesh.dy * mesh.dz) ** (1.0 / 3.0)
-        g = torch.stack([grad(U[c], bcs_U[c], mesh) for c in range(3)])
+        g = _grad_U(U, bcs_U, mesh)
+        if self.kind == "dynamicSmagorinsky":
+            return rho * _dyn_smag_nut(g, U, bcs_U, mesh, delta)
         return rho * self._nut_from_grad(g, delta)
 
     def _nut_from_grad(self, g, delta):
@@ -61,6 +65,10 @@ class LESModel:
         velocity components (grad_multi_fl with their BC meshes m_U) and
         delta = V^(1/3) per cell. U (n, 3) -> (n,)."""
         from ..ops.fv_facelist import grad_multi_fl
+        if self.kind == "dynamicSmagorinsky":
+            raise ValueError("dynamicSmagorinsky needs a structured test "
+                             "filter; use Smagorinsky, WALE or Sigma on "
+                             "face-list meshes")
         gU = grad_multi_fl(m_U, U)              # (n, 3, 3): [n, i, j]
         g = torch.movedim(gU, 0, -1)            # (3, 3, n)
         return rho * self._nut_from_grad(g, volumes ** (1.0 / 3.0))
@@ -86,6 +94,15 @@ def wale(**kw) -> LESModel:
 
 def sigma_model(**kw) -> LESModel:
     return LESModel(kind="Sigma", **kw)
+
+
+def dynamic_smagorinsky(**kw) -> LESModel:
+    return LESModel(kind="dynamicSmagorinsky", **kw)
+
+
+def _grad_U(U, bcs_U, mesh):
+    """g[i, j] = dU_i/dx_j, (3, 3, nx, ny, nz)."""
+    return torch.stack([grad(U[c], bcs_U[c], mesh) for c in range(3)])
 
 
 def _strain(g):
@@ -151,3 +168,43 @@ def _eig3_sym_comps(a00, a11, a22, a01, a02, a12):
     e3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     e2 = 3.0 * q - e1 - e3
     return e1, e2, e3
+
+
+def _box_filter(f, bcs, mesh):
+    """Top-hat test filter: the 27-point trapezoidal local average (weight
+    1/2 per off-centre offset along each axis)."""
+    P = pad_field(f, bcs, mesh)
+    out, w_tot = 0.0, 0.0
+    nx, ny, nz = f.shape[-3:]
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for dk in (-1, 0, 1):
+                w = ((0.5 if di else 1.0) * (0.5 if dj else 1.0)
+                     * (0.5 if dk else 1.0))
+                out = out + w * P[..., 1 + di:nx + 1 + di, 1 + dj:ny + 1 + dj,
+                                  1 + dk:nz + 1 + dk]
+                w_tot += w
+    return out / w_tot
+
+
+def _dyn_smag_nut(g, U, bcs_U, mesh, delta):
+    """Dynamic Smagorinsky (Germano-Lilly): Cs^2 = <L:M> / <M:M> with the
+    test filter's local average, clipped to [0, 0.09]; every field is
+    filtered with velocity component 0's BCs, as in the JAX package."""
+    S = _strain(g)
+    magS = torch.sqrt(2.0 * (S * S).sum((0, 1)))
+    filt = lambda f: _box_filter(f, bcs_U[0], mesh)
+    U_f = torch.stack([filt(U[c]) for c in range(3)])
+    S_f = _strain(_grad_U(U_f, bcs_U, mesh))
+    magS_f = torch.sqrt(2.0 * (S_f * S_f).sum((0, 1)))
+    alpha = 2.0   # test-to-grid filter width ratio
+    L = torch.stack([torch.stack([filt(U[i] * U[j]) - U_f[i] * U_f[j]
+                                  for j in range(3)]) for i in range(3)])
+    M = torch.stack([torch.stack([
+        filt(magS * S[i, j]) - alpha ** 2 * magS_f * S_f[i, j]
+        for j in range(3)]) for i in range(3)])
+    M = 2.0 * delta ** 2 * M
+    LM = filt((L * M).sum((0, 1)))
+    MM = filt((M * M).sum((0, 1)))
+    Cs2 = torch.clamp(LM / torch.clamp(MM, min=1e-30), 0.0, 0.09)
+    return Cs2 * delta ** 2 * magS

@@ -12,7 +12,9 @@ import yaml
 from deepflame_tpu.chemistry import (load_mechanism, make_kinetics,
                                      make_thermo, make_transport)
 from deepflame_tpu.chemistry.integrator import RosenbrockOptions
-from deepflame_tpu.chemistry.kinetics import production_rates
+from deepflame_tpu.chemistry.kinetics import (heat_release_rate,
+                                              mass_production_rates,
+                                              production_rates)
 from deepflame_tpu.chemistry.reactor import ignite
 
 import deepflame_torch.chemistry as tc
@@ -102,6 +104,40 @@ def test_thermo_matches_jax(name):
     assert _rel(thj.T_from_h(h, Y, T * 0.9),
                 tht.T_from_h(torch.as_tensor(h), Yt, Tt * 0.9)) <= 1e-12
     assert _rel(thj.h_formation, tht.h_formation) <= 1e-15
+
+
+@pytest.mark.parametrize("name", MECHS)
+def test_thermo_energy_functions_match_jax(name):
+    """cv, internal and sensible enthalpy, gamma, sound speed and the Newton
+    T(e), float64, <= 1e-12 of each property's largest value."""
+    path = os.path.join(DATA, name)
+    mj, mt = load_mechanism(path), tc.load_mechanism(path, device="cpu")
+    thj, tht = make_thermo(mj), tc.make_thermo(mt)
+    T, _, Y = _state(mj)
+    Tt, Yt = torch.as_tensor(T), torch.as_tensor(Y)
+    for f in ("cv_mass", "e_mass", "hs_mass", "gamma", "sound_speed"):
+        assert _rel(getattr(thj, f)(T, Y), getattr(tht, f)(Tt, Yt)) <= 1e-12, f
+    e = np.asarray(thj.e_mass(T, Y))
+    Te = tht.T_from_e(torch.as_tensor(e), Yt, Tt * 0.9)
+    assert _rel(thj.T_from_e(e, Y, T * 0.9), Te) <= 1e-12
+    assert _rel(T, Te) <= 1e-12
+
+
+def test_kinetics_helpers_match_jax():
+    """mass_production_rates and heat_release_rate, float64, <= 1e-12 of
+    their largest values; the mass rates sum to zero per cell."""
+    mj, mt = load_mechanism(MECH), tc.load_mechanism(MECH, device="cpu")
+    thj, tht = make_thermo(mj), tc.make_thermo(mt)
+    kj, kt = make_kinetics(mj), tc.make_kinetics(mt)
+    T, p, Y = _state(mj, n=256, seed=2)
+    rho = np.asarray(thj.rho(p, T, Y))
+    args = tuple(map(torch.as_tensor, (T, rho, Y)))
+    RR = tc.kinetics.mass_production_rates(kt, tht, *args)
+    assert _rel(mass_production_rates(kj, thj, T, rho, Y), RR) <= 1e-12
+    assert float(RR.sum(-1).abs().max() / RR.abs().max()) <= 1e-12
+    Q = tc.kinetics.heat_release_rate(kt, tht, *args)
+    assert _rel(heat_release_rate(kj, thj, T, rho, Y), Q) <= 1e-12
+    assert float(Q.abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("name", MECHS)

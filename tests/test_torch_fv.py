@@ -141,7 +141,8 @@ def test_eig3_sym_matches_numpy():
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-10 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("kind", ["Smagorinsky", "WALE", "Sigma"])
+@pytest.mark.parametrize("kind", ["Smagorinsky", "WALE", "Sigma",
+                                  "dynamicSmagorinsky"])
 def test_les_mu_t_matches_jax(kind):
     rng = np.random.default_rng(3)
     mj, mt = _meshes()
@@ -153,3 +154,102 @@ def test_les_mu_t_matches_jax(kind):
                                     (b, b, b), mj)
     mu_t = TLESModel(kind=kind).mu_t(t(rho), t(U), (bt, bt, bt), mt)
     _close(mu_j, mu_t, rtol=1e-11)
+
+
+def test_dynamic_smagorinsky_non_periodic_matches_jax():
+    """The dynamic model's test filter pads every field with velocity
+    component 0's BCs (fixedValue, zeroGradient, cyclic, fixedGradient
+    sides), as the JAX package's does; and it refuses face-list meshes."""
+    rng = np.random.default_rng(5)
+    mj, mt = _meshes()
+    U = rng.normal(size=(3,) + SHAPE)
+    rho = rng.uniform(0.5, 1.5, SHAPE)
+    bj, bt = _bcs(jm), _bcs(tm)
+    mu_j = LESModel(kind="dynamicSmagorinsky").mu_t(
+        jnp.asarray(rho), jnp.asarray(U), (bj, bj, bj), mj)
+    model = TLESModel(kind="dynamicSmagorinsky")
+    mu_t = model.mu_t(t(rho), t(U), (bt, bt, bt), mt)
+    _close(mu_j, mu_t, rtol=1e-11)
+    assert float(mu_t.max()) > 0.0
+    with pytest.raises(ValueError, match="structured"):
+        model.mu_t_fl(None, None, None, None)
+
+
+def _stacked_bcs(pkg, k):
+    """Lane k's BCs: the kinds and values differ between lanes on x and z."""
+    zg = pkg.zero_gradient()
+    x = ((pkg.fixed_value(0.3), zg), (zg, pkg.fixed_gradient(1.5)))[k]
+    z = ((pkg.fixed_gradient(-2.0), pkg.fixed_value(1.2)),
+         (pkg.symmetry(True), pkg.fixed_value(-0.4)))[k]
+    return (x, (pkg.cyclic(), pkg.cyclic()), z)
+
+
+@pytest.mark.parametrize("case", ["stencil", "stacked-bcs", "probes"])
+def test_fvmatrix_diag_H_residual_match_jax(case):
+    """diag, H and residual of ddt + div(upwind) - laplacian, and the
+    difference of two FvMatrix, per lane against the JAX package's. The port
+    reads diag from the folded stencil ("stencil"), with per-lane ghost
+    coefficients where the two lanes' BCs are stacked ("stacked-bcs"), or
+    from JAX's coloring probes where the Laplacian's gamma is a scalar and
+    so has no stencil ("probes")."""
+    rng = np.random.default_rng(6)
+    mj, mt = _meshes()
+    rho = rng.uniform(0.5, 1.5, SHAPE)
+    phi = tuple(rng.normal(size=s) for s in ((9, 6, 5), (8, 7, 5), (8, 6, 6)))
+    gam = (tuple(rng.uniform(0.01, 0.1, p.shape) for p in phi)
+           if case != "probes" else 0.05)
+    x_old, x_now = rng.uniform(0, 1, (2, 2) + SHAPE)
+    dt = 1e-2
+    arr_t = (lambda g: tuple(map(t, g))) if case != "probes" else (lambda g: g)
+
+    def build(pkg, fv, bcs, x_o, x_n, arr, g):
+        m = mj if pkg is jm else mt
+        eqn = (fv.fvm_ddt(arr(rho), x_o, dt, m, bcs)
+               + fv.fvm_div(tuple(map(arr, phi)), x_n, m, bcs, "upwind"))
+        if case == "probes":
+            # JAX's __sub__ takes only terms that have a stencil
+            return eqn + fv.fvm_laplacian(g, m, bcs, sign=-1.0)
+        return eqn - fv.fvm_laplacian(g, m, bcs)
+
+    if case == "stacked-bcs":
+        bcs_t = tm.structured.stack_bcs([_stacked_bcs(tm, k) for k in (0, 1)],
+                                        mt, torch.float64)
+        assert bcs_t[0][0].kind == "affine"
+    else:
+        bcs_t = _bcs(tm)
+    eq_t = build(tm, tfv, bcs_t, t(x_old), t(x_now), t, arr_t(gam))
+    if case == "probes":
+        assert eq_t.stencil() is None
+    x = rng.normal(size=(2,) + SHAPE)
+    d_t, H_t, r_t = eq_t.diag(), eq_t.H(t(x)), eq_t.residual(t(x))
+    for k in range(2):
+        bj = _stacked_bcs(jm, k) if case == "stacked-bcs" else _bcs(jm)
+        ej = build(jm, jfv, bj, x_old[k], jnp.asarray(x_now[k]), jnp.asarray,
+                   gam)
+        _close(ej.diag(), d_t[k])
+        _close(ej.H(jnp.asarray(x[k])), H_t[k], rtol=1e-11)
+        _close(ej.residual(jnp.asarray(x[k])), r_t[k], rtol=1e-11)
+        _close(ej.rhs(), eq_t.rhs()[k])
+
+
+def test_explicit_helpers_match_jax():
+    """flux_of, laplacian_explicit (per-axis face gamma and a scalar) and
+    snGrad_boundary on mixed BCs."""
+    rng = np.random.default_rng(7)
+    mj, mt = _meshes()
+    bj, bt = _bcs(jm), _bcs(tm)
+    f = rng.normal(size=SHAPE)
+    rho_u = rng.normal(size=(3,) + SHAPE)
+    gam = tuple(rng.uniform(0.01, 0.1, s) for s in
+                ((9, 6, 5), (8, 7, 5), (8, 6, 6)))
+    for a, b in zip(jfv.flux_of(jnp.asarray(rho_u), (bj, bj, bj), mj),
+                    tfv.flux_of(t(rho_u), (bt, bt, bt), mt)):
+        _close(a, b)
+    for gj, gt in ((gam, tuple(map(t, gam))), (0.07, 0.07)):
+        _close(jfv.laplacian_explicit(gj, jnp.asarray(f), bj, mj),
+               tfv.laplacian_explicit(gt, t(f), bt, mt))
+    sj = jfv.snGrad_boundary(jnp.asarray(f), bj, mj)
+    st = tfv.snGrad_boundary(t(f), bt, mt)
+    assert sorted(sj) == sorted(st)
+    for key in sj:
+        _close(sj[key], st[key])

@@ -56,3 +56,63 @@ def test_low_mach_options_match_jax(opts):
     if not solver_t.config.solve_energy:
         np.testing.assert_array_equal(state_t.ha.numpy(),
                                       np.asarray(state_j.ha))
+
+
+def test_thermo_tran_nn_hook_matches_jax():
+    """tests/test_low_mach.py's useThermoTranNN case: inert air, 8 x 8 x 1
+    periodic, a hook that fixes mu and alpha. The port calls it, takes its
+    values, and steps like the JAX package with the same hook."""
+    import deepflame_tpu.chemistry as jc
+    import deepflame_tpu.mesh as jm
+    from deepflame_tpu.combustion import NoCombustion as JNoCombustion
+    from deepflame_tpu.solvers.low_mach import LowMachConfig as JConfig
+    from deepflame_tpu.solvers.low_mach import LowMachSolver as JSolver
+
+    import deepflame_torch.chemistry as tc
+    import deepflame_torch.mesh as tm
+    from deepflame_torch.combustion import NoCombustion
+    from deepflame_torch.solvers import LowMachConfig, LowMachSolver
+
+    air = os.path.join(os.path.dirname(__file__), "data", "air.yaml")
+    n = 8
+    calls = []
+
+    def hook(full):
+        def nn(T, p, Yt):
+            calls.append(1)
+            return {"mu": full(T, 5e-5), "alpha": full(T, 7e-5)}
+        return nn
+
+    solvers = []
+    for pkg, chem, S, Cfg, Comb, full, kw in (
+            (jm, jc, JSolver, JConfig, JNoCombustion, jnp.full_like, {}),
+            (tm, tc, LowMachSolver, LowMachConfig, NoCombustion,
+             torch.full_like, {"device": "cpu"})):
+        mech = chem.load_mechanism(air, **kw)
+        th, tr, kin = (chem.make_thermo(mech), chem.make_transport(mech),
+                       chem.make_kinetics(mech))
+        b = ((pkg.cyclic(), pkg.cyclic()), (pkg.cyclic(), pkg.cyclic()),
+             (pkg.empty(), pkg.empty()))
+        solvers.append(S(
+            mesh=pkg.StructuredMesh.box([0.01, 0.01, 0.01 / n], [n, n, 1],
+                                        **kw),
+            thermo=th, transport=tr, combustion=Comb(th, kin),
+            bcs_U=(b, b, b), bcs_p=b, bcs_h=b, bcs_Y=b, bcs_rho=b,
+            config=Cfg(chemistry=False), thermo_tran_nn=hook(full)))
+    solver_j, solver_t = solvers
+    sh = (n, n, 1)
+    mu, alpha, _ = solver_t._mixture_update(
+        torch.full(sh, 101325.0, dtype=torch.float64),
+        torch.full(sh, 300.0, dtype=torch.float64),
+        torch.ones((1,) + sh, dtype=torch.float64))
+    assert calls
+    assert float((mu - 5e-5).abs().max()) == 0.0
+    assert float((alpha - 7e-5).abs().max()) == 0.0
+    X, Yg, _ = solver_j.mesh.cell_centers()
+    k = 2 * np.pi / 0.01
+    U = jnp.stack([jnp.sin(k * X) * jnp.cos(k * Yg),
+                   -jnp.cos(k * X) * jnp.sin(k * Yg), jnp.zeros_like(X)])
+    T = 300.0 + 50.0 * jnp.sin(k * X)
+    state_j = solver_j.initial_state(jnp.full(sh, 101325.0), T,
+                                     jnp.ones((1,) + sh), U)
+    run_both(solver_j, state_j, solver_t, 1e-5, 1)

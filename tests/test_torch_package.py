@@ -42,7 +42,8 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.runtime.factory, deepflame_torch.runtime.driver\n"
         "import deepflame_torch.mesh.geometry, deepflame_torch.mesh.facelist\n"
         "import deepflame_torch.mesh.blockmesh, deepflame_torch.mesh.polymesh\n"
-        "import deepflame_torch.ops.fv_facelist\n"
+        "import deepflame_torch.ops.fv_facelist, deepflame_torch.ops.multigrid\n"
+        "import deepflame_torch.ops.compensated\n"
         "import deepflame_torch.solvers.low_mach_fl\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -117,3 +118,24 @@ def test_cpu_dnn_step_counts_no_launch():
     assert all(v == 0 for v in K.launches.values())
     assert solver.combustion.net.fused
     assert torch.isfinite(state.T).all()
+
+
+def test_cpu_structured_jet_counts_no_launch():
+    """The structured jet with multigrid pressure preconditioning on the CPU
+    takes the plain versions of the stencil and Helmholtz kernels on every
+    level: no kernel launch counted; without a card its case function
+    needs device='cpu'."""
+    import dataclasses
+    from deepflame_torch.cases import jet_flame_3d_les
+    from deepflame_torch.ops import kernels as K
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            jet_flame_3d_les(MECH, n=2)
+    solver, state = jet_flame_3d_les(MECH, n=4, dtype=torch.float64,
+                                     device="cpu")
+    solver = dataclasses.replace(solver, config=dataclasses.replace(
+        solver.config, p_precond="mg"))
+    K.reset_launches()
+    state, diag = solver.step(state, 5e-7)
+    assert all(v == 0 for v in K.launches.values())
+    assert torch.isfinite(state.T).all() and int(diag["iters_p"]) > 0

@@ -48,6 +48,28 @@ def test_ignite_trajectory_matches_jax():
     np.testing.assert_allclose(Yt.numpy(), np.asarray(Yj), rtol=0, atol=1e-10)
 
 
+def test_ignite_constant_volume_matches_jax():
+    """Constant-volume ignition at 1200 K (the UV reactor: cv and internal
+    energies, p rising), called positionally with JAX's parameter order
+    (n_out, then const, then opts); tolerances as the constant-pressure
+    case's. The port's signature is JAX's, name for name."""
+    import inspect
+
+    thj, kj, tht, kt, mech = _tables()
+    Y0 = _fresh(mech, 1)[0]
+    args = (1200.0, 101325.0, Y0, 2e-4, 10, "volume")
+    _, Tj, Yj = ignite(thj, kj, *args, RosenbrockOptions(rtol=1e-5,
+                                                         atol=1e-10))
+    _, Tt, Yt = treactor.ignite(tht, kt, *args, TOpts(rtol=1e-5, atol=1e-10))
+    assert float(Tt[-1]) > 2800.0
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-9)
+    np.testing.assert_allclose(Yt.numpy(), np.asarray(Yj), rtol=0, atol=1e-10)
+    assert (list(inspect.signature(treactor.ignite).parameters)
+            == list(inspect.signature(ignite).parameters))
+    with pytest.raises(ValueError):
+        treactor.ignite(tht, kt, 1200.0, 101325.0, Y0, 2e-4, 10, "density")
+
+
 def _compare(rj, rt):
     """Per-lane results of the two packages: T 1e-10 relative, Y 1e-12
     absolute, RR 1e-9 of its largest value (adaptive Rosenbrock through

@@ -218,17 +218,14 @@ def test_factory_selection():
         case = C.CaseConfig(combustion=C.CombustionProperties(model=model))
         with pytest.raises(NotImplementedError, match="A11"):
             tfactory.build_combustion(case, None, None)
-    for les in ("Smagorinsky", "WALE", "Sigma"):
+    for les in ("Smagorinsky", "WALE", "Sigma", "dynamicSmagorinsky"):
         turb = tfactory.build_turbulence(C.CaseConfig(
             turbulence=C.TurbulenceProperties(simulation_type="LES",
                                               les_model=les, Pr_t=0.9)))
-        assert turb.Pr_t == 0.9
-    for t, match in ((C.TurbulenceProperties(simulation_type="RAS"), "A12"),
-                     (C.TurbulenceProperties(
-                         simulation_type="LES",
-                         les_model="dynamicSmagorinsky"), "A6")):
-        with pytest.raises(NotImplementedError, match=match):
-            tfactory.build_turbulence(C.CaseConfig(turbulence=t))
+        assert turb.Pr_t == 0.9 and turb.kind == les
+    with pytest.raises(NotImplementedError, match="A12"):
+        tfactory.build_turbulence(C.CaseConfig(
+            turbulence=C.TurbulenceProperties(simulation_type="RAS")))
     with pytest.raises(NotImplementedError, match="A10"):
         tfactory.build_high_speed_solver()
     assert tfactory.build_turbulence(C.CaseConfig()) is None
