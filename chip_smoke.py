@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile FILE]
+    python3 chip_smoke.py [--profile FILE] [--phases LIST]
 
 From the root of the repository, on a machine with one CUDA card and the CUDA
 toolkit (nvcc). In order:
@@ -49,7 +49,28 @@ toolkit (nvcc). In order:
 5. runs the DNN case through the case runtime at 32^3 (a CaseConfig, the
    solver factory with an npz checkpoint of seeded weights, run_case with
    splittingStrategy, one checkpoint, then a restart from it);
-6. prints its total seconds, the card line, one JSON line of kernel
+6. tci: the structured jet at n = 8 (16 x 8 x 8) in float64 with PaSR
+   dynamicScale and with EDC v2005, 2 steps through run_case with the
+   jet's function objects (cases.jet_function_objects) on the card and on
+   the CPU path: fields and the transported Z, Zvar and Chi within 1e-8
+   (U 1e-6), the written files' probe and line cells, histogram counts and
+   separable min/max locations equal, their values within 1e-10 of each
+   column's largest (1e-8 for columns computed from the velocity);
+7. sjet-pasr: the structured jet at 128 x 64 x 64 in float32 with the
+   factory's PaSR dynamicScale through run_case, 2 warm-up and 2 timed
+   steps with the function objects writing every step (launch counts set
+   to 0 just before the timed steps, read just after; the stencil,
+   Helmholtz and Gauss-Jordan kernels must launch; every file written,
+   finite, one row or snapshot a write, line coordinates the cell centres,
+   T in [200, 3500] K); the Gauss-Jordan trips run against those the
+   drains needed; a step with PaSR's correct() timed in it; the function
+   objects' wall and device ms and bytes to the host per write;
+8. sjet-edc: one step of that jet with EDC v2005, its trips counted, the
+   three kernels launching;
+9. light checks, card against CPU: the Peng-Robinson tables at 10 MPa on
+   the 96^3 TGV fields (float64), set_r_delta_t on the PaSR jet's state,
+   an OpenFOAM field file of the n = 8 jet's T read back onto the card;
+10. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -646,7 +667,8 @@ PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
                 "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused"),
                 "fl": ("ell_matvec", "gj_inverse"),
                 "sjet": ("stencil7_apply", "helmholtz7_apply", "gj_inverse")}
-STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT, "sjet": JET_DT}
+STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT, "sjet": JET_DT,
+           "sjet-pasr": JET_DT}
 
 
 def _build_case(path: str, n: int, dtype, device=None, **kw):
@@ -879,7 +901,7 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     if path == "dnn":
         _check_dnn_rates(torch, solver, state)
     _breakdown_step(torch, solver, state, path)
-    if profile or path != "stiff":
+    if profile or path == "dnn":
         _profile_step(torch, solver, state, ms, profile, path)
     return counts, (solver, state, ms, diag)
 
@@ -960,12 +982,14 @@ def _check_dnn_rates(torch, solver, state) -> None:
 def _breakdown_step(torch, solver, state, path: str) -> None:
     """One more step with the chemistry call timed inside it (synchronised
     before and after), for the chemistry's share of a step: the stiff
-    integrator (solve_chemistry) or the DNN model's correct()."""
+    integrator (solve_chemistry), the DNN model's correct() or PaSR's
+    correct() (its transport of Z, Zvar and Chi comes before it)."""
     import deepflame_torch.combustion.basic as basic
-    from deepflame_torch.combustion import DNNChemistry
+    from deepflame_torch.combustion import DNNChemistry, PaSR
 
-    owner, attr = ((DNNChemistry, "correct") if path == "dnn"
-                   else (basic, "solve_chemistry"))
+    owner, attr = {"dnn": (DNNChemistry, "correct"),
+                   "sjet-pasr": (PaSR, "correct")}.get(
+                       path, (basic, "solve_chemistry"))
     inner, spent = getattr(owner, attr), []
 
     def timed(*a, **k):
@@ -1090,13 +1114,495 @@ def phase_runtime(torch, K, n: int) -> None:
                   "runtime: non-finite T or p")
 
 
+# ---------------------------------------------------------------- PaSR, EDC
+
+JET_OPTS = dict(rtol=1e-4, atol=1e-8, max_steps=2000, grow=10.0)
+
+
+def _jet_h2(torch, dev):
+    from deepflame_torch.chemistry import load_mechanism
+    return load_mechanism(MECH, device=dev).species_index("H2")
+
+
+def _pasr_case(dtype: str):
+    """The case dictionary whose factory model the PaSR phases run: PaSR
+    dynamicScale with the jet's own stiff tolerances (rtol 1e-4, atol 1e-8;
+    the factory's 20000 steps and growth 10)."""
+    from deepflame_torch.runtime import config as C
+    return C.CaseConfig(
+        chemistry=C.ChemistryProperties(mechanism_file=MECH, ode_rtol=1e-4,
+                                        ode_atol=1e-8),
+        combustion=C.CombustionProperties(model="PaSR",
+                                          pasr_mixing_scale="dynamicScale"),
+        dtype=dtype)
+
+
+def _mixing_jet(torch, model: str, n: int, dtype, dev):
+    """The structured jet with PaSR dynamicScale (from the factory, Z fixed
+    at the inlet to Y_H2 / 0.30) or EDC v2005 (the jet's stiff options)."""
+    from deepflame_torch.cases import jet_flame_3d_les, jet_with_combustion
+    from deepflame_torch.chemistry.integrator import RosenbrockOptions
+    from deepflame_torch.combustion import EDC
+    from deepflame_torch.runtime.factory import build_combustion
+    solver, state = jet_flame_3d_les(MECH, n=n, dtype=dtype, device=dev)
+    th, kin = solver.thermo, solver.combustion.kinetics
+    if model == "PaSR":
+        comb = build_combustion(_pasr_case(
+            "float64" if dtype == torch.float64 else "float32"), th, kin)
+    else:
+        comb = EDC(th, kin, ode_opts=RosenbrockOptions(**JET_OPTS))
+    return jet_with_combustion(solver, state, comb, _jet_h2(torch, dev))
+
+
+class _Recorder:
+    """A solver whose step is the given solver's, keeping each step's
+    diagnostics (run_case calls only .step)."""
+
+    def __init__(self, solver):
+        self.solver, self.diags = solver, []
+
+    def step(self, state, dt):
+        state, diag = self.solver.step(state, dt)
+        self.diags.append(diag)
+        return state, diag
+
+
+class _FieldSpy:
+    """A function object that keeps CPU copies of named fields at each
+    call (for the min/max runner-up test)."""
+
+    def __init__(self, names):
+        self.names, self.calls = names, []
+
+    def __call__(self, time, fields):
+        self.calls.append({k: fields[k].detach().double().cpu()
+                           for k in self.names if k in fields})
+
+
+def _run_fo(torch, solver, state, out_dir, steps, with_z, spy=None):
+    """run_case over `steps` steps of JET_DT from t = 0 with the jet's
+    function-object set writing every step under out_dir; (state,
+    recorder, function objects)."""
+    from deepflame_torch.cases import jet_fields, jet_function_objects
+    from deepflame_torch.runtime.config import ControlDict
+    from deepflame_torch.runtime.driver import run_case
+    fo = jet_function_objects(solver, out_dir, JET_DT, with_z=with_z)
+    if spy is not None:
+        fo.inner.objects.append(spy)
+    rec = _Recorder(solver)
+    state = run_case(rec, state._replace(time=torch.zeros_like(state.time)),
+                     ControlDict(end_time=steps * JET_DT, delta_t=JET_DT,
+                                 write_interval=JET_DT),
+                     function_objects=fo, fields_fn=jet_fields,
+                     log_every=steps)
+    return state, rec, fo
+
+
+def _files(root: str) -> dict:
+    import numpy as np
+    out = {}
+    for base, _, names in os.walk(root):
+        for f in names:
+            path = os.path.join(base, f)
+            out[os.path.relpath(path, root)] = np.loadtxt(path, ndmin=2)
+    return out
+
+
+# fields computed from velocity gradients (and the flux): their columns
+# carry the velocity's round-off, amplified where Q's or lambda2's terms
+# cancel
+_FLOW_FIELDS = ("Q", "lambda2", "magVorticity", "Ma", "Co", "phi_x", "U")
+
+
+def _columns(obj) -> tuple[str, list]:
+    """(output sub-directory, the field each column of its files holds)
+    of one of the jet's function objects (None: time or coordinates)."""
+    import deepflame_torch.runtime.function_objects as F
+    name = os.path.basename(obj.out_dir)
+    if isinstance(obj, F.FieldMinMax):
+        return name, [None] + [f for f in obj.fields for _ in range(8)]
+    if isinstance(obj, F.Probes):
+        return name, [None] + [f for f in obj.fields for _ in obj.idx]
+    if isinstance(obj, F.Histogram):
+        return name, [obj.field, None]
+    if isinstance(obj, (F.VolFieldValue, F.SurfaceFieldValue)):
+        return name, [None] + [f for f in obj.fields for _ in obj.ops]
+    return name, [None] + list(obj.fields)          # LineSample
+
+
+def _compare_fo(torch, card_dir, cpu_dir, spy, fo_card, fo_cpu,
+                tol: float = 1e-10, tol_flow: float = 1e-8) -> dict:
+    """The function-object files of the card run against the CPU run's:
+    probe and line cells and histogram counts equal; each value within tol
+    of its column's largest (tol_flow for the columns of _FLOW_FIELDS);
+    min/max locations equal wherever the CPU field's runner-up differs
+    from its extremum by more than the column's tolerance of the field's
+    largest |value|. Returns the largest deviation of each kind."""
+    import numpy as np
+    a_all, b_all = _files(card_dir), _files(cpu_dir)
+    check(set(a_all) == set(b_all) and a_all, "tci: file sets differ")
+    objs_a, objs_b = fo_card.inner.objects, fo_cpu.inner.objects
+    check(objs_a[1].idx == objs_b[1].idx, "tci: probe cells differ")
+    for i in (2, 3):
+        check(bool(torch.equal(objs_a[i]._flat.cpu(), objs_b[i]._flat)),
+              "tci: line cells differ")
+    cols = dict(_columns(o) for o in objs_b if hasattr(o, "out_dir"))
+    worst = {"fields": 0.0, "flow": 0.0}
+    for path, B in b_all.items():
+        A = a_all[path]
+        check(A.shape == B.shape, f"tci: {path} shapes differ")
+        names = cols[path.split(os.sep)[0]]
+        flow = np.array([n in _FLOW_FIELDS for n in names])
+        col_tol = np.where(flow, tol_flow, tol)
+        dev = np.abs(A - B) / np.maximum(np.abs(B).max(0), 1e-300)
+        if "histogram" in path:
+            check(np.array_equal(A[:, 1], B[:, 1]),
+                  f"tci: {path} counts differ")
+        if "fieldMinMax" in path:
+            for r, fields in enumerate(spy.calls):
+                for k, name in enumerate(objs_b[0].fields):
+                    f = fields[name].reshape(-1)
+                    fs = float(f.abs().max())
+                    c0 = 8 * k
+                    for off, top in ((1, False), (5, True)):
+                        v = f.sort(descending=top).values[:2]
+                        c = c0 + off
+                        if float((v[0] - v[1]).abs()) > col_tol[c] * fs:
+                            check(np.array_equal(A[r, c + 1:c + 4],
+                                                 B[r, c + 1:c + 4]),
+                                  f"tci: {name} extremum location differs")
+                        dev[r, c + 1:c + 4] = 0.0        # checked above
+        for kind, sel in (("fields", ~flow), ("flow", flow)):
+            if sel.any():
+                worst[kind] = max(worst[kind], float(dev[:, sel].max()))
+        bad = (dev > col_tol).any(0)
+        check(not bad.any(), f"tci: {path} columns {np.nonzero(bad)[0]} "
+                             f"deviate {dev.max(0)}")
+    return worst
+
+
+def phase_tci(torch, K) -> dict:
+    """The structured jet at n = 8 (16 x 8 x 8) in float64 with PaSR
+    dynamicScale and with EDC v2005, 2 steps through run_case with the
+    jet's function-object set, on the card and on the CPU path: every
+    field and the transported Z, Zvar and Chi within 1e-8 of their largest
+    values (U 1e-6); the written files as _compare_fo (1e-10 of each
+    column's largest, 1e-8 for the columns computed from the velocity).
+    Returns the card's T of the PaSR run (for the OpenFOAM-IO
+    check)."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in ("PaSR", "EDC"):
+            t0 = time.perf_counter()
+            before = dict(K.launches)
+            names = ("T", "p", "Q") + (("Z",) if model == "PaSR" else ())
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                solver, state = _mixing_jet(torch, model, 8, torch.float64, dev)
+                spy = _FieldSpy(names)
+                d = os.path.join(tmp, f"{model}_{dev}")
+                state, rec, fo = _run_fo(torch, solver, state, d, 2,
+                                         model == "PaSR", spy)
+                runs[dev] = (state, rec, fo, spy, d)
+            check(all(K.launches[k] > before[k]
+                      for k in PATH_KERNELS["sjet"]),
+                  f"tci {model}: a kernel of the path did not launch")
+            sc, sp = runs["cuda"][0], runs["cpu"][0]
+            devs = {}
+            for k in ("p", "T", "U", "Y", "rho", "ha"):
+                devs[k] = max_rel_err(torch, getattr(sc, k).cpu(),
+                                      getattr(sp, k))[1]
+                check(devs[k] <= (1e-6 if k == "U" else 1e-8),
+                      f"tci {model} {k}: {devs[k]:.3e}")
+            check(len(sc.cscalars) == (3 if model == "PaSR" else 0),
+                  f"tci {model}: transported scalars")
+            for name, a, b in zip(("Z", "Zvar", "Chi"), sc.cscalars,
+                                  sp.cscalars):
+                devs[name] = max_rel_err(torch, a.cpu(), b)[1]
+                check(devs[name] <= 1e-8, f"tci {model} {name}: "
+                                          f"{devs[name]:.3e}")
+            worst = max(devs.values())
+            fo_worst = _compare_fo(torch, runs["cuda"][4], runs["cpu"][4],
+                                   runs["cpu"][3], runs["cuda"][2],
+                                   runs["cpu"][2])
+            diag = runs["cuda"][1].diags[-1]
+            print(f"tci ({model}): n=8 float64, 2 steps through run_case on "
+                  f"the card vs the CPU path: largest field deviation "
+                  f"{worst:.3e}; function-object files, of each column's "
+                  f"largest: {fo_worst['fields']:.3e} (field columns), "
+                  f"{fo_worst['flow']:.3e} (columns from velocity "
+                  f"gradients and fluxes); last step "
+                  + json.dumps({k: float(v) for k, v in diag.items()
+                                if k.startswith("iters")})
+                  + f"; by field {json.dumps(devs)} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            out[model] = sc
+    return out
+
+
+def _count_trips(torch, K):
+    """Context wrapper of the reactor's batched integrator that records,
+    per drain, (trips run = gj_inverse launches, trips needed = the trips
+    at whose start some lane was running, return_nstep)."""
+    import contextlib
+    import deepflame_torch.chemistry.reactor as R
+
+    @contextlib.contextmanager
+    def cm():
+        inner, drains = R.rosenbrock_integrate_batched, []
+
+        def counted(*a, **k):
+            n0 = K.launches["gj_inverse"]
+            y, dt, need = inner(*a, return_nstep=True, **k)
+            drains.append((K.launches["gj_inverse"] - n0, need))
+            return y, dt
+        R.rosenbrock_integrate_batched = counted
+        try:
+            yield drains
+        finally:
+            R.rosenbrock_integrate_batched = inner
+            drains[:] = [(run, int(need)) for run, need in drains]
+    return cm()
+
+
+def _fo_cost(torch, fo, fields, profile: bool = True) -> dict:
+    """Wall ms (synchronised), bytes and transfers to the host, and device
+    ms (torch.profiler) of one call of the function-object set."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+    import deepflame_torch.runtime.function_objects as F
+    torch.cuda.synchronize()
+    F.reset_transfers()
+    t0 = time.perf_counter()
+    fo(1.0, fields)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    moved = dict(F.transfers)
+    dev_ms = None
+    if profile:
+        with prof_(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as p:
+            fo(2.0, fields)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.time_range.elapsed_us() for e in p.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(wall_ms=wall, device_ms=dev_ms, bytes=moved["bytes"],
+                transfers=moved["count"])
+
+
+def phase_sjet_pasr(torch, K, steps: int = STEPS):
+    """The structured jet at 128 x 64 x 64 in float32 with the factory's
+    PaSR dynamicScale through run_case: 2 warm-up steps, then `steps` timed
+    steps with the launch counts set to 0 just before and read just after,
+    the function-object set writing every step. Then one more step with
+    the drains' trips counted, and the function objects' cost on the final
+    state. Returns (launch counts of the timed steps, ms/step, solver,
+    state)."""
+    import tempfile
+    import numpy as np
+    from deepflame_torch.cases import jet_fields, jet_function_objects
+    t0 = time.perf_counter()
+    solver, state = _mixing_jet(torch, "PaSR", N_JET, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    comb = solver.combustion
+    print(f"sjet-pasr: {solver.mesh.shape} cells, PaSR {comb.mixing_scale} "
+          f"/ {comb.chemistry_scale} from the factory (rtol "
+          f"{comb.ode_opts.rtol:g}, atol {comb.ode_opts.atol:g}, "
+          f"{comb.ode_opts.max_steps} steps, {comb.n_bins} bins), built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state, _, _ = _run_fo(torch, solver, state, os.path.join(tmp, "w"),
+                              2, True)
+        torch.cuda.synchronize()
+        print(f"sjet-pasr warm-up: 2 steps in {time.perf_counter() - t0:.2f}"
+              f" s")
+        T_before = state.T.clone()
+        torch.cuda.reset_peak_memory_stats()
+        out = os.path.join(tmp, "timed")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        state, rec, fo = _run_fo(torch, solver, state, out, steps, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K.launches)
+        ms = wall / steps * 1e3
+        n_cells = state.T.numel()
+        print(f"sjet-pasr counts over {steps} steps: {json.dumps(counts)}; "
+              f"per step " + json.dumps({k: v / steps
+                                         for k, v in counts.items()}))
+        print(f"sjet-pasr path: {ms:.2f} ms/step through run_case (the "
+              f"function objects included), {n_cells / (wall / steps):.4e} "
+              f"cell-updates/s ({n_cells} cells), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print("sjet-pasr diagnostics of the last step: " + json.dumps(
+            {k: float(v) for k, v in rec.diags[-1].items()}))
+        check(all(counts[k] > 0 for k in PATH_KERNELS["sjet"]),
+              f"a kernel of the sjet-pasr path was not launched: {counts}")
+        check(bool(torch.isfinite(state.T).all()
+                   and torch.isfinite(state.p).all()), "sjet-pasr: non-finite")
+        check(float((state.T - T_before).abs().max()) > 0.0,
+              "sjet-pasr: T did not change")
+        T_lo, T_hi = float(state.T.min()), float(state.T.max())
+        check(200.0 <= T_lo and T_hi <= 3500.0,
+              f"sjet-pasr: T in [{T_lo}, {T_hi}]")
+        check(float(state.cscalars[0].max()) > 0.5,
+              "sjet-pasr: no fuel-stream mixture fraction")
+        _check_fo_files(torch, solver, fo, out, steps)
+        with _count_trips(torch, K) as drains:
+            t0 = time.perf_counter()
+            state2, diag = solver.step(state, JET_DT)
+            torch.cuda.synchronize()
+        run = sum(d[0] for d in drains)
+        need = sum(d[1] for d in drains)
+        print(f"sjet-pasr trips: one more step ({(time.perf_counter() - t0) * 1e3:.2f} ms "
+              f"with the counting) ran {len(drains)} drains, gj_inverse "
+              f"trips run {run}, needed {need}; by drain (run, needed) "
+              f"{drains}")
+        _breakdown_step(torch, solver, state2, "sjet-pasr")
+        cost = _fo_cost(torch, fo, jet_fields(state2))
+        print("sjet-pasr function objects per write: " + json.dumps(cost)
+              + f"; {cost['wall_ms'] / ms:.4f} of a step")
+        check(cost["transfers"] == 9, "sjet-pasr: the function objects did "
+                                      "not move one row an object")
+    return counts, ms, solver, state2
+
+
+def _check_fo_files(torch, solver, fo, out: str, writes: int) -> None:
+    """Every file of the set exists with one row (time series) or one
+    snapshot (line, histogram) per write, finite; line coordinates equal
+    the cell centres."""
+    import numpy as np
+    files = _files(out)
+    series = [p for p in files if "line_" not in p and "histogram" not in p]
+    snaps = [p for p in files if p not in series]
+    print(f"sjet-pasr function-object files: {len(series)} time series, "
+          f"{len(snaps)} snapshots: {sorted(files)}")
+    check(len(series) == 6 and len(snaps) == 3 * writes,
+          "sjet-pasr: function-object files missing")
+    for p, a in files.items():
+        check(bool(np.isfinite(a).all()), f"sjet-pasr: {p} not finite")
+        if p in series:
+            check(a.shape[0] == writes, f"sjet-pasr: {p} has {a.shape[0]} "
+                                        f"rows for {writes} writes")
+    X, Yc, _ = (c.cpu().numpy() for c in solver.mesh.cell_centers())
+    for p, a in files.items():
+        if p.startswith("sample_axis"):
+            check(np.array_equal(a[:, 0], X[:, 0, 0]), "line x coordinates")
+        if p.startswith("sample_y30"):
+            check(np.array_equal(a[:, 0], Yc[0, :, 0]), "line y coordinates")
+
+
+def phase_sjet_edc(torch, K):
+    """One step of the structured jet at 128 x 64 x 64 in float32 with EDC
+    v2005 (the jet's stiff options: 2000 steps at most) from its initial
+    state, with the launch counts set to 0 just before it and the drains'
+    trips counted."""
+    t0 = time.perf_counter()
+    solver, state = _mixing_jet(torch, "EDC", N_JET, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    print(f"sjet-edc: {solver.mesh.shape} cells, EDC "
+          f"{solver.combustion.version}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    K.reset_launches()
+    with _count_trips(torch, K) as drains:
+        t0 = time.perf_counter()
+        new, diag = solver.step(state, JET_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    run = sum(d[0] for d in drains)
+    need = sum(d[1] for d in drains)
+    print(f"sjet-edc path: one step {wall * 1e3:.2f} ms, "
+          f"{new.T.numel() / wall:.4e} cell-updates/s; counts "
+          f"{json.dumps(counts)}; {len(drains)} drains, gj_inverse trips run "
+          f"{run}, needed {need}; by drain {drains}")
+    print("sjet-edc diagnostics: " + json.dumps(
+        {k: float(v) for k, v in diag.items()}))
+    check(all(counts[k] > 0 for k in PATH_KERNELS["sjet"]),
+          f"a kernel of the sjet-edc path was not launched: {counts}")
+    check(bool(torch.isfinite(new.T).all()), "sjet-edc: non-finite T")
+    check(200.0 <= float(new.T.min()) and float(new.T.max()) <= 3500.0,
+          "sjet-edc: T out of range")
+    return counts, wall * 1e3
+
+
+def phase_light(torch, K, sjet_state, sjet_solver, T_tci) -> None:
+    """Card against CPU: the PR real-gas tables (make_real_gas) on the
+    9-species mechanism at 10 MPa over the 96^3 TGV fields, float64 (rho,
+    psi(p=), Z and h_departure within 1e-12 of each one's largest value);
+    set_r_delta_t on the PaSR jet's float32 state (1e-6 of the largest);
+    an OpenFOAM field file written from the n = 8 jet's T (float64) and
+    read back onto the card, equal."""
+    import tempfile
+    import numpy as np
+    from deepflame_torch.chemistry import load_mechanism, make_thermo
+    from deepflame_torch.chemistry.real_gas import make_real_gas
+    from deepflame_torch.ops.lts import set_r_delta_t
+    from deepflame_torch.runtime.openfoam_io import read_openfoam_field
+    t0 = time.perf_counter()
+    _, tgv = _build_case("stiff", N_MAIN, torch.float64, device="cuda")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mech = load_mechanism(MECH, device=dev)
+        rg = make_real_gas(mech, make_thermo(mech))
+        T, Yt = tgv.T.to(dev), torch.movedim(tgv.Y, 0, -1).to(dev)
+        p = torch.full_like(T, 1e7)
+        res[dev] = dict(rho=rg.rho(p, T, Yt), psi=rg.psi(T, Yt, p=p),
+                        Z=rg.Z(p, T, Yt), h_departure=rg.h_departure(p, T, Yt))
+    errs = {k: max_rel_err(torch, res["cuda"][k].cpu(), res["cpu"][k])[1]
+            for k in res["cpu"]}
+    print(f"real gas at 10 MPa on the {N_MAIN}^3 TGV fields, card vs CPU, "
+          f"float64: " + json.dumps(errs) + f"; Z in "
+          f"[{float(res['cpu']['Z'].min()):.5f}, "
+          f"{float(res['cpu']['Z'].max()):.5f}]")
+    check(max(errs.values()) <= 1e-12, "real gas: card and CPU differ")
+    del tgv, res
+    bcs = sjet_solver.bcs_coeff
+    phi_cpu = tuple(f.cpu() for f in sjet_state.phi)
+    from deepflame_torch.mesh import StructuredMesh
+    m = sjet_solver.mesh
+    m_cpu = StructuredMesh(m.nx, m.ny, m.nz, m.dx, m.dy, m.dz, m.x0, m.y0,
+                           m.z0, device=torch.device("cpu"))
+    a = set_r_delta_t(sjet_state.phi, sjet_state.rho, bcs, m)
+    b = set_r_delta_t(phi_cpu, sjet_state.rho.cpu(), bcs, m_cpu)
+    _, rel = max_rel_err(torch, a.cpu(), b)
+    print(f"set_r_delta_t on the sjet-pasr state, card vs CPU, float32: "
+          f"{rel:.3e} of the largest; rDeltaT in [{float(b.min()):.4e}, "
+          f"{float(b.max()):.4e}] 1/s")
+    check(rel <= 1e-6, "set_r_delta_t: card and CPU differ")
+    T = T_tci.cpu().numpy()
+    nx, ny, nz = T.shape
+    flat = T.transpose(2, 1, 0).reshape(-1)       # blockMesh order, x fastest
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "T")
+        with open(path, "w") as f:
+            f.write("FoamFile\n{\n    class volScalarField;\n    object T;\n"
+                    "}\ninternalField   nonuniform List<scalar>\n"
+                    f"{flat.size}\n(\n" + "\n".join(repr(float(v))
+                                                    for v in flat)
+                    + "\n)\n;\n")
+        back = read_openfoam_field(path, (nx, ny, nz), device="cuda")
+    check(back.device.type == "cuda" and bool(torch.equal(back.cpu(),
+                                                          T_tci.cpu())),
+          "OpenFOAM field read back onto the card differs")
+    print(f"OpenFOAM field file of the n=8 jet's T ({flat.size} cells) read "
+          f"back onto the card: equal ({time.perf_counter() - t0:.1f} s for "
+          f"the light checks)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="profile one extra step of each main path (the DNN "
-                         "and jet paths always are); write the device-time "
-                         "tables to FILE with _stiff, _dnn, _fl and _sjet "
-                         "before its extension")
+                         "path always is); write the device-time tables to "
+                         "FILE with _stiff, _dnn, _fl and _sjet before its "
+                         "extension")
+    ap.add_argument("--phases", metavar="LIST",
+                    help="run only these of tci, sjet-pasr, sjet-edc and "
+                         "light (comma-separated; light needs tci and "
+                         "sjet-pasr) after the build, and end without the "
+                         "result lines")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1131,6 +1637,25 @@ def main() -> int:
         seconds[name] = round(now - t_phase, 1)
         t_phase = now
 
+    if args.phases:
+        only = args.phases.split(",")
+        if "tci" in only:
+            tci = phase_tci(torch, K)
+            phase_done("tci")
+        if "sjet-pasr" in only:
+            _, _, solver, state = phase_sjet_pasr(torch, K)
+            phase_done("sjet-pasr")
+        if "sjet-edc" in only:
+            phase_sjet_edc(torch, K)
+            phase_done("sjet-edc")
+        if "light" in only:
+            phase_light(torch, K, state, solver, tci["PaSR"].T)
+            phase_done("light")
+        print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
+              f"phase {json.dumps(seconds)}")
+        print(card)
+        return 0
+
     jet = build_jet(torch, N_JET)
     phase_done("build")
     figures = phase_kernels(torch, K, jet[0].p_ell)
@@ -1157,6 +1682,16 @@ def main() -> int:
           f"{ms['fl']:.2f} ms/step")
     phase_runtime(torch, K, N_RUNTIME)
     phase_done("runtime")
+    tci = phase_tci(torch, K)
+    phase_done("tci")
+    counts["sjet-pasr"], ms["sjet-pasr"], solver, state = phase_sjet_pasr(
+        torch, K)
+    phase_done("sjet-pasr")
+    counts["sjet-edc"], ms["sjet-edc"] = phase_sjet_edc(torch, K)
+    phase_done("sjet-edc")
+    phase_light(torch, K, state, solver, tci["PaSR"].T)
+    del solver, state, tci
+    phase_done("light")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -26,7 +27,8 @@ from .turbulence import sigma_model
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
-           "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl"]
+           "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl",
+           "jet_with_combustion", "jet_function_objects", "jet_fields"]
 
 
 def _fresh_mixture(mech):
@@ -134,6 +136,7 @@ def reacting_hot_spot_2d(mech_path: str, n: int = 32, dtype=torch.float32,
 # fuel jet at 50 m/s with a hot pilot annulus into a 0.9 m/s air coflow,
 # over x in [0, 60] mm (streamwise), y, z in [-15, 15] mm
 JET_D = 7.2e-3
+JET_FUEL_H2 = 0.30            # H2 mass fraction of the fuel stream
 _JET_BLOCKMESH = """
 convertToMeters 0.001;
 vertices
@@ -184,7 +187,7 @@ def jet_inlet_profiles(yz: np.ndarray, ns: int, species_index) -> dict:
     in_jet = r < JET_D / 2
     in_pilot = (r >= JET_D / 2) & (r < JET_D)
     Y = np.zeros((r.shape[0], ns))
-    Y[:, iH2] = np.where(in_jet, 0.30, np.where(in_pilot, 0.005, 0.0))
+    Y[:, iH2] = np.where(in_jet, JET_FUEL_H2, np.where(in_pilot, 0.005, 0.0))
     Y[:, iO2] = np.where(in_jet, 0.0, 0.233 * (1.0 - in_pilot * 0.5))
     Y[:, iN2] = 1.0 - Y[:, iH2] - Y[:, iO2]
     return dict(u=np.where(in_jet, 50.0, np.where(in_pilot, 10.0, 0.9)),
@@ -205,7 +208,7 @@ def jet_initial_fields(centers: np.ndarray, ns: int, species_index) -> dict:
     U = np.zeros((X.shape[0], 3))
     U[:, 0] = 0.9 + (50.0 - 0.9) * wjet
     Y = np.zeros((X.shape[0], ns))
-    Y[:, iH2] = 0.30 * wjet
+    Y[:, iH2] = JET_FUEL_H2 * wjet
     Y[:, iO2] = 0.233 * (1.0 - wjet)
     Y[:, iN2] = 1.0 - Y[:, iH2] - Y[:, iO2]
     hot = (rr < D) & (X < 2.5 * D)
@@ -319,3 +322,82 @@ def jet_flame_3d_les_fl(mech_path: str, n: int = 64, dtype=torch.float32,
     init = jet_initial_fields(gm.centers, ns, mech.species_index)
     return solver, solver.initial_state(init["p"], init["T"], init["Y"],
                                         init["U"])
+
+
+def jet_with_combustion(solver, state, combustion, h2_index: int):
+    """The structured jet (`jet_flame_3d_les`) with another combustion
+    model, and its initial state made anew. A model with transported
+    scalars (PaSR dynamicScale) gets the jet's mixture fraction Z = Y_H2 /
+    JET_FUEL_H2: fixed at the inlet to the inlet profile's, zeroGradient
+    elsewhere (`bcs_Z`), and Z0 from the initial Y (the jet's core shape
+    wjet)."""
+    zg = zero_gradient()
+    zgp = (zg, zg)
+    Z_in = solver.bcs_Y[h2_index][0][0].value / JET_FUEL_H2
+    solver = dataclasses.replace(solver, combustion=combustion,
+                                 bcs_Z=((fixed_value(Z_in), zg), zgp, zgp))
+    return solver, solver.initial_state(
+        state.p, state.T, state.Y, state.U, time=float(state.time),
+        Z0=state.Y[h2_index] / JET_FUEL_H2)
+
+
+def jet_fields(state) -> dict:
+    """The field dict function objects read from a structured jet state:
+    T, p, U, Y, rho, the x-face mass-flux density phi_x and, with
+    transported scalars, the mixture fraction Z."""
+    out = dict(T=state.T, p=state.p, U=state.U, Y=state.Y, rho=state.rho,
+               phi_x=state.phi[0])
+    if state.cscalars:
+        out["Z"] = state.cscalars[0]
+    return out
+
+
+def jet_function_objects(solver, out_dir: str, dt: float,
+                         with_z: bool = True):
+    """The function-object set of the structured jet, writing under
+    out_dir: derived |vorticity|, Q, lambda2, Ma and the Courant number;
+    FieldMinMax of T, p, Q (and Z); Probes of T (and Z) at x = 5, 15, 30,
+    45 and 55 mm on the axis; LineSamples along x on the axis and along y
+    at x = 30 mm; FieldAverage of T and U; VolFieldValue of T (volAverage,
+    max, CoV) and of Z (volIntegrate); SurfaceFieldValue of the outlet mass
+    flux (areaIntegrate of phi_x on the last x plane); a 50-bin Histogram
+    of T; VolFieldValue max of the Courant number, |vorticity| and
+    lambda2 (their minima sit at round-off, near zero). with_z: whether the fields hold Z (a model with transported
+    scalars)."""
+    from .runtime import derived as D
+    from .runtime import function_objects as F
+    mesh, bcs_U = solver.mesh, solver.bcs_U
+    sub = lambda name: os.path.join(out_dir, name)
+    z = ("Z",) if with_z else ()
+    specs = {
+        "magVorticity": lambda f: torch.sqrt(
+            (D.vorticity(f["U"], bcs_U, mesh) ** 2).sum(0)),
+        "Q": lambda f: D.q_criterion(f["U"], bcs_U, mesh),
+        "lambda2": lambda f: D.lambda2(f["U"], bcs_U, mesh),
+        "Ma": lambda f: D.mach_number(f["U"], f["T"],
+                                      torch.movedim(f["Y"], 0, -1),
+                                      solver.thermo),
+        "Co": lambda f: D.courant_no(f["U"], dt, mesh),
+    }
+    axis_x = [(x, 0.0, 0.0) for x in (0.005, 0.015, 0.030, 0.045, 0.055)]
+    objs = [
+        F.FieldMinMax(mesh, ("T", "p", "Q") + z, sub("fieldMinMax")),
+        F.Probes(mesh, axis_x, ("T",) + z, sub("probes")),
+        F.LineSample(mesh, 0, (0.0, 0.0, 0.0), ("T", "Ma") + z,
+                     sub("sample_axis")),
+        F.LineSample(mesh, 1, (0.030, 0.0, 0.0), ("T", "Q") + z,
+                     sub("sample_y30")),
+        F.FieldAverage(("T", "U")),
+        F.VolFieldValue(mesh, ("T",), ("volAverage", "max", "CoV"),
+                        out_dir=sub("volFieldValue_T")),
+        F.SurfaceFieldValue(mesh, ("phi_x",), axis=0, index=mesh.nx,
+                            ops=("areaIntegrate",),
+                            out_dir=sub("surfaceFieldValue")),
+        F.Histogram("T", 50, out_dir=sub("histogram")),
+        F.VolFieldValue(mesh, ("Co", "magVorticity", "lambda2"),
+                        ("max",), out_dir=sub("volFieldValue_flow")),
+    ]
+    if with_z:
+        objs.insert(6, F.VolFieldValue(mesh, ("Z",), ("volIntegrate",),
+                                       out_dir=sub("volFieldValue_Z")))
+    return D.DerivedFields(specs, F.FunctionObjectSet(objs))

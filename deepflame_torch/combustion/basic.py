@@ -29,6 +29,10 @@ class CombustionModel:
     # by the warm-started controller step instead of temperature
     n_bins: int = 32
     sort: str = "T"
+    # whether correct() reads `turb`: the low-Mach step computes the SGS k,
+    # epsilon and nu only for models that do (JAX's jit drops them for the
+    # others as dead code)
+    reads_turb = False
 
     def correct(self, T, p, Y, dt, turb=None, dt_start=None) -> ChemistryResult:
         """Reaction rates over dt. `turb`: the turbulence fields (k,

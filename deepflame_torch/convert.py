@@ -34,8 +34,9 @@ def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
 
 def state_from_numpy(d: dict, dtype=torch.float64, device=None) -> LowMachState:
     """LowMachState from a dict of numpy fields: rho, U, p, ha, Y, T, dpdt,
-    time, phi (sequence of three face arrays) and optionally chem_dt (absent,
-    None or empty when chemistry is off)."""
+    time, phi (sequence of three face arrays), optionally turb and cscalars
+    (sequences of cell arrays, absent or empty without them) and chem_dt
+    (absent, None or empty when chemistry is off)."""
     device = resolve_device(device)
     f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
     chem_dt = d.get("chem_dt")
@@ -44,7 +45,9 @@ def state_from_numpy(d: dict, dtype=torch.float64, device=None) -> LowMachState:
     return LowMachState(
         rho=f(d["rho"]), U=f(d["U"]), p=f(d["p"]), ha=f(d["ha"]), Y=f(d["Y"]),
         T=f(d["T"]), phi=tuple(f(x) for x in d["phi"]), dpdt=f(d["dpdt"]),
-        time=f(d["time"]), chem_dt=None if chem_dt is None else f(chem_dt))
+        time=f(d["time"]), turb=tuple(f(x) for x in d.get("turb", ())),
+        cscalars=tuple(f(x) for x in d.get("cscalars", ())),
+        chem_dt=None if chem_dt is None else f(chem_dt))
 
 
 def fl_state_from_numpy(d: dict, dtype=torch.float64,

@@ -3,10 +3,10 @@
 Port of deepflame_tpu/runtime/factory.py (the reference solvers'
 createFields.H: runtime selection of thermo, combustion model and
 turbulence model from the case dictionaries), for what the port has:
-laminar, noCombustion and DNN combustion; laminar flow and the Smagorinsky,
-WALE, Sigma and dynamic Smagorinsky LES models; the low-Mach solver. Every
-other selection raises NotImplementedError naming the ROADMAP item that
-ports it.
+laminar, EDC, PaSR, noCombustion and DNN combustion; laminar flow and the
+Smagorinsky, WALE, Sigma and dynamic Smagorinsky LES models; the low-Mach
+solver. Every other selection raises NotImplementedError naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from ..chemistry import (load_mechanism, make_kinetics, make_thermo,
                          make_transport)
 from ..chemistry.dnn import load_npz_checkpoint
 from ..chemistry.integrator import RosenbrockOptions
-from ..combustion import DNNChemistry, Laminar, NoCombustion
+from ..combustion import DNNChemistry, EDC, Laminar, NoCombustion, PaSR
 from ..solvers.low_mach import LowMachConfig, LowMachSolver
 from ..turbulence import dynamic_smagorinsky, sigma_model, smagorinsky, wale
 from .config import CaseConfig
@@ -50,8 +50,14 @@ def build_combustion(case: CaseConfig, th, kin):
         return Laminar(th, kin, ode_opts=opts,
                        T_threshold=case.chemistry.frozen_temperature
                        if case.chemistry.torch_on else 280.0)
-    if m in ("EDC", "PaSR"):
-        raise NotImplementedError(f"combustion model {m}: ROADMAP A11")
+    if m == "EDC":
+        return EDC(th, kin, ode_opts=opts,
+                   version=case.combustion.edc_version)
+    if m == "PaSR":
+        return PaSR(th, kin, ode_opts=opts,
+                    mixing_scale=case.combustion.pasr_mixing_scale,
+                    chemistry_scale=case.combustion.pasr_chemistry_scale,
+                    Cmix=case.combustion.pasr_Cmix)
     if m == "noCombustion":
         return NoCombustion(th, kin)
     if m == "DNN":

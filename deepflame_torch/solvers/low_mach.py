@@ -23,9 +23,14 @@ Helmholtz kernel (on the CPU, their plain versions), preconditioned by
 Jacobi or by a geometric-multigrid V-cycle whose levels run the Helmholtz
 kernel too (`LowMachConfig.p_precond`).
 
-Not in this slice: spray sources, RAS models and combustion-model scalar
-transport, and processor (multi-device) boundaries. The JAX config's
-`use_pallas` chose a TPU kernel and has no counterpart here.
+Mixing models (EDC, PaSR) read the SGS k, epsilon and nu, computed before
+the chemistry for the models whose `reads_turb` is set; PaSR's dynamicScale
+advances its own Z, Zvar and Chi there (`cscalars` of the state, BCs
+`bcs_Z`), each transport one batched solve on the stencil kernel.
+
+Not in this slice: spray sources, RAS models and processor (multi-device)
+boundaries. The JAX config's `use_pallas` chose a TPU kernel and has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -65,6 +70,9 @@ class LowMachState(NamedTuple):
     phi: tuple
     dpdt: torch.Tensor
     time: torch.Tensor
+    turb: tuple = ()          # RAS fields (k, eps); () without a RAS model
+    cscalars: tuple = ()      # combustion-model-owned fields (PaSR
+                              # dynamicScale Z, Zvar, Chi), else ()
     chem_dt: Any = None       # per-cell warm-start chemistry step, or None
 
 
@@ -113,6 +121,8 @@ class LowMachSolver:
     bcs_rho: Any
     config: LowMachConfig = LowMachConfig()
     turbulence: Any = None     # LESModel or None (laminar)
+    bcs_Z: Any = None          # BCs of combustion-owned scalars (PaSR
+                               # dynamicScale's Z); default bcs_coeff
     thermo_tran_nn: Any = None  # callable (T, p, Yt) -> dict of any of mu,
                                 # alpha, rhoD (species first) overriding the
                                 # transport fits (a transport surrogate)
@@ -190,10 +200,16 @@ class LowMachSolver:
             rhoD = nn.get("rhoD", rhoD)
         return mu, alpha, rhoD
 
-    def initial_state(self, p, T, Y, U=None, time: float = 0.0) -> LowMachState:
+    def initial_state(self, p, T, Y, U=None, time: float = 0.0,
+                      k0: float = 1e-3, eps0: float = 1e-2,
+                      Z0=None) -> LowMachState:
         """State from p, T (nx, ny, nz), Y (ns, nx, ny, nz) and U (3, nx, ny,
         nz), given as tensors or arrays; placed on the solver's device in the
-        thermo tables' dtype."""
+        thermo tables' dtype. Z0: the initial mixture fraction of a model
+        with transported scalars (PaSR dynamicScale; default 0). k0, eps0:
+        the RAS fields' initial values, which the port has no model for."""
+        if getattr(self.turbulence, "is_ras", False):
+            raise NotImplementedError("RAS models: ROADMAP A12")
         dtype, dev = self.dtype, self.device
         f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
         p, T, Y = f(p), f(T), f(Y)
@@ -201,6 +217,9 @@ class LowMachSolver:
         U = torch.zeros((3,) + sh, dtype=dtype, device=dev) if U is None else f(U)
         Yt = torch.movedim(Y, 0, -1)
         rho = self.thermo.rho(p, T, Yt)
+        cscalars = ()
+        if getattr(self.combustion, "n_aux", 0):
+            cscalars = self.combustion.aux_init(sh, dtype, Z0)
         chem_dt = None
         if self.config.chemistry:
             chem_dt = torch.full(sh, self.combustion.ode_opts.dt_init,
@@ -208,7 +227,27 @@ class LowMachSolver:
         return LowMachState(rho=rho, U=U, p=p, ha=self.thermo.h_mass(T, Yt),
                             Y=Y, T=T, phi=self._face_flux(rho, U),
                             dpdt=torch.zeros(sh, dtype=dtype, device=dev),
-                            time=f(time), chem_dt=chem_dt)
+                            time=f(time), cscalars=cscalars, chem_dt=chem_dt)
+
+    def _turb_q(self, s: LowMachState, dt, stats: dict):
+        """The turbulence fields a mixing model reads (SGS k, epsilon and
+        nu from the start-of-step state) and the model's transported
+        scalars advanced over dt: (turb_q, cscalars)."""
+        mesh = self.mesh
+        rho, U, T, p = s.rho, s.U, s.T, s.p
+        mu0, _, _ = self._mixture_update(p, T, s.Y)
+        mu_t0 = self.turbulence.mu_t(rho, U, self.bcs_U, mesh)
+        k_sgs, eps_sgs = self.turbulence.sgs_k_epsilon(mu_t0, rho, mesh)
+        turb_q = dict(k=k_sgs, epsilon=eps_sgs, nu=mu0 / rho)
+        cscalars = s.cscalars
+        if getattr(self.combustion, "n_aux", 0):
+            bz = self.bcs_Z if self.bcs_Z is not None else self.bcs_coeff
+            cscalars = self.combustion.aux_advance(
+                cscalars, rho, s.rho, s.phi, U, T, p, mu0 + mu_t0, mu_t0,
+                k_sgs, eps_sgs, dt, mesh, bz, self.bcs_U, self.bcs_coeff,
+                self.config.div_scheme, stats=stats)
+            turb_q["Zvar"], turb_q["Chi"] = cscalars[1], cscalars[2]
+        return turb_q, cscalars
 
     # ----------------------------------------------------------------- step
     def step(self, s: LowMachState, dt) -> tuple[LowMachState, dict]:
@@ -226,10 +265,14 @@ class LowMachSolver:
         diag = {}
 
         # ===== chemistry (operator split, once per step)
+        cscalars = s.cscalars
         if cfg.chemistry:
+            turb_q = None
+            if self.turbulence is not None and self.combustion.reads_turb:
+                turb_q, cscalars = self._turb_q(s, dt, diag)
             chem = self.combustion.correct(
                 T, p, torch.movedim(Y, 0, -1), dt * cfg.chemistry_dt_scale,
-                dt_start=s.chem_dt)
+                turb_q, dt_start=s.chem_dt)
             chem_dt_new = chem.dt_next if chem.dt_next is not None else s.chem_dt
             # splittingStrategy: the scaled-dt fractional chemistry step
             # applies its full change within this transport step
@@ -351,8 +394,8 @@ class LowMachSolver:
         diag["T_min"] = gmin(T)
         diag["T_max"] = gmax(T)
         return LowMachState(rho=rho, U=U, p=p, ha=ha, Y=Y, T=T, phi=phi,
-                            dpdt=dpdt, time=s.time + dt,
-                            chem_dt=chem_dt_new), diag
+                            dpdt=dpdt, time=s.time + dt, turb=s.turb,
+                            cscalars=cscalars, chem_dt=chem_dt_new), diag
 
     # ---------------------------------------------- shared PIMPLE blocks
     def _grad_comp(self, f, ax: int):

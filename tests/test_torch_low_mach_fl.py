@@ -46,7 +46,7 @@ from deepflame_torch.mesh import geometry as tgeo
 from deepflame_torch.ops import kernels as K
 from deepflame_torch.solvers import LowMachConfig, LowMachSolverFL
 from test_torch_facelist_mesh import sheared_box_raw
-from test_torch_low_mach import RTOL_FLOW, _rel
+from test_torch_low_mach import RTOL_FLOW, _rel, check_chem_dt
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 MECH = os.path.join(DATA, "h2_air_9sp.json")
@@ -64,7 +64,7 @@ def to_port(s):
     return fl_state_from_numpy(d, device="cpu")
 
 
-def assert_states_close(sj, st, dt):
+def assert_states_close(sj, st, dt, chem_dt_rtol=None):
     for k in FIELDS:
         tol = RTOL_FLOW if k == "U" else 1e-8
         assert _rel(getattr(sj, k), getattr(st, k)) <= tol, k
@@ -76,12 +76,14 @@ def assert_states_close(sj, st, dt):
     for a, b in zip(sj.phi_b, st.phi_b):
         assert np.abs(np.asarray(a) - b.numpy()).max() <= RTOL_FLOW * scale
     if not isinstance(sj.chem_dt, tuple):
-        assert _rel(sj.chem_dt, st.chem_dt) <= 1e-8
+        check_chem_dt(sj.chem_dt, st.chem_dt, chem_dt_rtol)
 
 
-def run_both_fl(solver_j, state_j, solver_t, dt, n_steps, iters_p_slack=0):
+def run_both_fl(solver_j, state_j, solver_t, dt, n_steps, iters_p_slack=0,
+                chem_dt_rtol=None):
     """Step both packages from the JAX state, asserting parity after each
-    step; returns the final states."""
+    step (chem_dt as test_torch_low_mach.check_chem_dt); returns the final
+    states."""
     state_t = to_port(state_j)
     step = make_step_fl(solver_j)
     for _ in range(n_steps):
@@ -93,7 +95,7 @@ def run_both_fl(solver_j, state_j, solver_t, dt, n_steps, iters_p_slack=0):
                 slack = iters_p_slack if k == "iters_p" else 0
                 assert abs(int(dj[k]) - int(dt_[k])) <= slack, \
                     (k, dj[k], dt_[k])
-        assert_states_close(state_j, state_t, dt)
+        assert_states_close(state_j, state_t, dt, chem_dt_rtol)
     assert torch.isfinite(state_t.T).all()
     return state_j, state_t
 

@@ -45,6 +45,13 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.ops.fv_facelist, deepflame_torch.ops.multigrid\n"
         "import deepflame_torch.ops.compensated\n"
         "import deepflame_torch.solvers.low_mach_fl\n"
+        "import deepflame_torch.chemistry.real_gas, deepflame_torch.ops.lts\n"
+        "import deepflame_torch.runtime.openfoam_io\n"
+        "import deepflame_torch.runtime.platform\n"
+        "import deepflame_torch.runtime.derived\n"
+        "import deepflame_torch.runtime.function_objects\n"
+        "import deepflame_torch.utils.flame_speed\n"
+        "import deepflame_torch.combustion.edc, deepflame_torch.combustion.pasr\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('deepflame_tpu')]\n"

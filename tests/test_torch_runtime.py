@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import deepflame_tpu.chemistry as jc_chem
 from deepflame_tpu.chemistry import dnn as jdnn
 from deepflame_tpu.mesh import StructuredMesh, cyclic, empty
 from deepflame_tpu.runtime import checkpoint as jckpt
@@ -22,6 +23,7 @@ from deepflame_tpu.runtime import config as jconfig
 from deepflame_tpu.runtime import driver as jdriver
 from deepflame_tpu.runtime import factory as jfactory
 
+import deepflame_torch.chemistry as tc_chem
 import deepflame_torch.mesh as tmesh
 from deepflame_torch.ops import kernels as K
 from deepflame_torch.runtime import (checkpoint as tckpt, config as tconfig,
@@ -211,13 +213,26 @@ def test_port_checkpoint_round_trip(tmp_path):
 
 
 def test_factory_selection():
-    """Unported models raise NotImplementedError naming their ROADMAP item;
-    the LES models the port has are built."""
+    """EDC and PaSR are built from CombustionProperties as the JAX factory
+    builds them; unported models raise NotImplementedError naming their
+    ROADMAP item; the LES models the port has are built."""
     C = tconfig
-    for model in ("EDC", "PaSR"):
-        case = C.CaseConfig(combustion=C.CombustionProperties(model=model))
-        with pytest.raises(NotImplementedError, match="A11"):
-            tfactory.build_combustion(case, None, None)
+    mech = tc_chem.load_mechanism(MECH, device="cpu")
+    th, kin = tc_chem.make_thermo(mech), tc_chem.make_kinetics(mech)
+    mj = jc_chem.load_mechanism(MECH)
+    thj, kinj = jc_chem.make_thermo(mj), jc_chem.make_kinetics(mj)
+    for comb in (dict(model="EDC", edc_version="v2016"),
+                 dict(model="PaSR", pasr_mixing_scale="dynamicScale",
+                      pasr_chemistry_scale="globalConvertion",
+                      pasr_Cmix=0.2)):
+        got = tfactory.build_combustion(C.CaseConfig(
+            combustion=C.CombustionProperties(**comb)), th, kin)
+        ref = jfactory.build_combustion(jconfig.CaseConfig(
+            combustion=jconfig.CombustionProperties(**comb)), thj, kinj)
+        assert type(got).__name__ == type(ref).__name__ == comb["model"]
+        for f in dataclasses.fields(ref):
+            if f.name not in ("thermo", "kinetics", "dlb_cross_shard"):
+                assert getattr(got, f.name) == getattr(ref, f.name), f.name
     for les in ("Smagorinsky", "WALE", "Sigma", "dynamicSmagorinsky"):
         turb = tfactory.build_turbulence(C.CaseConfig(
             turbulence=C.TurbulenceProperties(simulation_type="LES",
@@ -272,3 +287,229 @@ def test_run_case_restart_keeps_the_float32_clock(tmp_path):
     assert Clock.steps == 2
     assert sorted(os.listdir(d)) == ["1.5e-06", "1e-06", "5e-07"]
     assert float(out.time) == pytest.approx(1.5e-6, rel=1e-6)
+
+
+# ------------------------------------------- PaSR jet with function objects
+
+JET_DT = 5e-7
+
+
+def _jax_jet_function_objects(solver, out_dir, dt):
+    """The JAX package's classes in the set of cases.jet_function_objects
+    (with Z)."""
+    from deepflame_tpu.runtime import derived as D
+    from deepflame_tpu.runtime import function_objects as F
+    mesh, bcs_U = solver.mesh, solver.bcs_U
+    sub = lambda name: os.path.join(out_dir, name)
+    specs = {
+        "magVorticity": lambda f: jnp.sqrt(
+            (D.vorticity(f["U"], bcs_U, mesh) ** 2).sum(0)),
+        "Q": lambda f: D.q_criterion(f["U"], bcs_U, mesh),
+        "lambda2": lambda f: D.lambda2(f["U"], bcs_U, mesh),
+        "Ma": lambda f: D.mach_number(f["U"], f["T"],
+                                      jnp.moveaxis(f["Y"], 0, -1),
+                                      solver.thermo),
+        "Co": lambda f: D.courant_no(f["U"], dt, mesh),
+    }
+    axis_x = [(x, 0.0, 0.0) for x in (0.005, 0.015, 0.030, 0.045, 0.055)]
+    objs = [
+        F.FieldMinMax(mesh, ("T", "p", "Q", "Z"), sub("fieldMinMax")),
+        F.Probes(mesh, axis_x, ("T", "Z"), sub("probes")),
+        F.LineSample(mesh, 0, (0.0, 0.0, 0.0), ("T", "Ma", "Z"),
+                     sub("sample_axis")),
+        F.LineSample(mesh, 1, (0.030, 0.0, 0.0), ("T", "Q", "Z"),
+                     sub("sample_y30")),
+        F.FieldAverage(("T", "U")),
+        F.VolFieldValue(mesh, ("T",), ("volAverage", "max", "CoV"),
+                        out_dir=sub("volFieldValue_T")),
+        F.VolFieldValue(mesh, ("Z",), ("volIntegrate",),
+                        out_dir=sub("volFieldValue_Z")),
+        F.SurfaceFieldValue(mesh, ("phi_x",), axis=0, index=mesh.nx,
+                            ops=("areaIntegrate",),
+                            out_dir=sub("surfaceFieldValue")),
+        F.Histogram("T", 50, out_dir=sub("histogram")),
+        F.VolFieldValue(mesh, ("Co", "magVorticity", "lambda2"),
+                        ("max",), out_dir=sub("volFieldValue_flow")),
+    ]
+    return D.DerivedFields(specs, F.FunctionObjectSet(objs)), objs[4]
+
+
+def _jax_fields(s):
+    return dict(T=s.T, p=s.p, U=s.U, Y=s.Y, rho=s.rho, phi_x=s.phi[0],
+                Z=s.cscalars[0])
+
+
+def _pasr_case(mod):
+    """PaSR dynamicScale from the factory, with the jet's own stiff
+    tolerances."""
+    return mod.CaseConfig(
+        chemistry=mod.ChemistryProperties(mechanism_file=MECH, ode_rtol=1e-4,
+                                          ode_atol=1e-8),
+        combustion=mod.CombustionProperties(
+            model="PaSR", pasr_mixing_scale="dynamicScale"),
+        control=mod.ControlDict(end_time=2 * JET_DT, delta_t=JET_DT,
+                                write_interval=JET_DT),
+        dtype="float64")
+
+
+@pytest.fixture(scope="module")
+def pasr_jet(tmp_path_factory):
+    """The 16 x 8 x 8 structured jet with PaSR dynamicScale (Z fixed at the
+    inlet to Y_H2 / 0.30) through each package's run_case, 2 steps with a
+    write every step: JAX in one run; the port to the first write, then
+    restarted from its checkpoint to the second, each run with its own
+    function-object set."""
+    from deepflame_torch.cases import jet_flame_3d_les, jet_with_combustion
+    from deepflame_torch.cases import jet_fields, jet_function_objects
+    from deepflame_tpu.mesh import fixed_value, zero_gradient
+    from test_torch_low_mach_jet import jax_jet
+
+    root = tmp_path_factory.mktemp("pasr_jet")
+    solver_j, s0 = jax_jet(8)
+    iH2 = jc_chem.load_mechanism(MECH).species_index("H2")
+    zg = zero_gradient()
+    comb_j = jfactory.build_combustion(_pasr_case(jconfig),
+                                       solver_j.thermo,
+                                       solver_j.combustion.kinetics)
+    solver_j = dataclasses.replace(
+        solver_j, combustion=comb_j, bcs_Z=(
+            (fixed_value(solver_j.bcs_Y[iH2][0][0].value / 0.30), zg),
+            (zg, zg), (zg, zg)))
+    state_j0 = solver_j.initial_state(s0.p, s0.T, s0.Y, s0.U,
+                                      Z0=s0.Y[iH2] / 0.30)
+    fo_j, avg_j = _jax_jet_function_objects(solver_j, str(root / "jax"),
+                                            JET_DT)
+    jdir = str(root / "jax_ckpt")
+    state_j = jdriver.run_case(solver_j, state_j0, _pasr_case(jconfig).control,
+                               function_objects=fo_j, fields_fn=_jax_fields,
+                               checkpoint_dir=jdir)
+
+    case_t = _pasr_case(tconfig)
+    solver_t, st0 = jet_flame_3d_les(MECH, n=8, dtype=torch.float64,
+                                     device="cpu")
+    comb_t = tfactory.build_combustion(case_t, solver_t.thermo,
+                                       solver_t.combustion.kinetics)
+    solver_t, _ = jet_with_combustion(solver_t, st0, comb_t, iH2)
+    tdir = str(root / "port_ckpt")
+    fos = [jet_function_objects(solver_t, str(root / f"port{i}"), JET_DT)
+           for i in (1, 2)]
+    K.reset_launches()
+    first = dataclasses.replace(case_t.control, end_time=JET_DT)
+    tdriver.run_case(solver_t, _to_port(state_j0), first,
+                     function_objects=fos[0], fields_fn=jet_fields,
+                     checkpoint_dir=tdir)
+    state_t = tdriver.run_case(solver_t, _to_port(state_j0), case_t.control,
+                               function_objects=fos[1], fields_fn=jet_fields,
+                               checkpoint_dir=tdir, restart=True)
+    assert all(v == 0 for v in K.launches.values())
+    return dict(root=root, jdir=jdir, tdir=tdir, state_j=state_j,
+                solver_j=solver_j,
+                state_t=state_t, avg_j=avg_j, fos=fos)
+
+
+def test_run_case_pasr_jet_matches_jax(pasr_jet):
+    """The final fields and the transported Z, Zvar and Chi against JAX's
+    (1e-8 of each field's largest value, velocity and fluxes 1e-6)."""
+    sj, st = pasr_jet["state_j"], pasr_jet["state_t"]
+    for k in FIELDS:
+        tol = RTOL_FLOW if k == "U" else 1e-8
+        assert _rel(getattr(sj, k), getattr(st, k)) <= tol, k
+    assert len(st.cscalars) == 3
+    for name, a, b in zip(("Z", "Zvar", "Chi"), sj.cscalars, st.cscalars):
+        assert _rel(a, b) <= 1e-8, name
+    assert float(st.cscalars[0].max()) > 0.5       # the inlet's fuel stream
+    assert float(st.cscalars[1].max()) > 0.0
+    assert float(st.time) == pytest.approx(2 * JET_DT, rel=1e-12)
+    # FieldAverage's means stay on the device, and agree
+    avg_t = pasr_jet["fos"][1].inner.objects[4]
+    assert isinstance(avg_t.mean["T"], torch.Tensor) and avg_t.n == 1
+    assert sorted(os.listdir(pasr_jet["tdir"])) == ["1e-06", "5e-07"]
+
+
+def _written(d):
+    """{relative path: array} of every file under d."""
+    out = {}
+    for base, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(base, f)
+            out[os.path.relpath(p, d)] = np.loadtxt(p, ndmin=2)
+    return out
+
+
+# columns that carry velocity (Q, lambda2, Ma, the outlet flux) take the
+# velocity's tolerance; the rest the fields'
+_FLOW_FILES = ("sample_axis", "sample_y30", "surfaceFieldValue",
+               "volFieldValue_flow")
+
+
+def test_run_case_pasr_jet_files_match_jax(pasr_jet):
+    """Each function-object file of the JAX run against the port's (its
+    first write from the first run, the second from the restarted one),
+    read with np.loadtxt: probe and line coordinates and histogram counts
+    equal; values within 1e-8 of each column's largest (1e-6 where the
+    column derives from the velocity); FieldMinMax locations equal where
+    the JAX file's min or max cell is the port's."""
+    root = pasr_jet["root"]
+    ref = _written(str(root / "jax"))
+    got = [_written(str(root / f"port{i}")) for i in (1, 2)]
+    assert len(ref) == 12 and set(ref) == set(got[0]) | set(got[1])
+    for path, a in ref.items():
+        parts = [g[path] for g in got if path in g]
+        b = np.concatenate(parts, 0) if "line_" not in path \
+            and "histogram" not in path else parts[-1]
+        assert a.shape == b.shape, path
+        tol = 1e-6 if path.split(os.sep)[0] in _FLOW_FILES \
+            or "fieldMinMax" in path else 1e-8
+        if "fieldMinMax" in path:
+            _check_min_max(pasr_jet, a, b, ("T", "p", "Q", "Z"), tol)
+            continue
+        if "histogram" in path:
+            np.testing.assert_array_equal(a[:, 1], b[:, 1])
+        if "line_" in path:
+            np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        scale = np.maximum(np.abs(a).max(0), 1e-300)
+        assert (np.abs(a - b).max(0) <= tol * scale).all(), path
+
+
+def _check_min_max(pasr_jet, a, b, names, tol):
+    """FieldMinMax rows a (JAX) and b (port): values within tol of each
+    column's largest; each location the JAX one where the JAX field's
+    extremum is alone by more than tol of the field's largest |value|,
+    else a cell whose JAX value lies within that of the extremum (a tie)."""
+    from deepflame_tpu.runtime.derived import q_criterion
+    state_j = pasr_jet["state_j"]
+    mesh = pasr_jet["solver_j"].mesh
+    X = np.stack([np.asarray(c).ravel() for c in mesh.cell_centers()], 1)
+    scale = np.maximum(np.abs(a).max(0), 1e-300)
+    for i, t in enumerate(a[:, 0]):
+        s = jckpt.load_state(pasr_jet["jdir"], like=state_j, time=t)
+        fj = dict(T=s.T, p=s.p, Z=s.cscalars[0], Q=q_criterion(
+            s.U, pasr_jet["solver_j"].bcs_U, mesh))
+        for k, name in enumerate(names):
+            f = np.asarray(fj[name]).ravel()
+            fs = np.abs(f).max()
+            for off, ext in ((1, f.min()), (5, f.max())):
+                c = 8 * k + off
+                assert abs(a[i, c] - b[i, c]) <= tol * scale[c], (name, t)
+                ties = np.nonzero(np.abs(f - ext) <= tol * fs)[0]
+                loc = [int(np.argmin(((X - r[c + 1:c + 4]) ** 2).sum(1)))
+                       for r in (a[i], b[i])]
+                if ties.size == 1:
+                    assert loc[0] == loc[1], (name, t)
+                else:
+                    assert loc[1] in ties, (name, t)
+
+
+def test_jax_pasr_checkpoint_restores_in_the_port(pasr_jet):
+    """The JAX run's last checkpoint (15 leaves: the state's fields, phi's
+    three faces, the three transported scalars and chem_dt) read by the
+    port is the JAX state bit for bit, cscalars included."""
+    sj, st = pasr_jet["state_j"], pasr_jet["state_t"]
+    assert jckpt.load_meta(pasr_jet["jdir"])["n_leaves"] == 15
+    back = tckpt.load_state(pasr_jet["jdir"], like=st)
+    for k in FIELDS + ("dpdt", "time", "chem_dt"):
+        np.testing.assert_array_equal(getattr(back, k).numpy(),
+                                      np.asarray(getattr(sj, k)))
+    for a, b in zip(back.phi + back.cscalars, sj.phi + sj.cscalars):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert back.turb == ()
