@@ -70,7 +70,28 @@ toolkit (nvcc). In order:
 9. light checks, card against CPU: the Peng-Robinson tables at 10 MPa on
    the 96^3 TGV fields (float64), set_r_delta_t on the PaSR jet's state,
    an OpenFOAM field file of the n = 8 jet's T read back onto the card;
-10. prints its total seconds, the card line, one JSON line of kernel
+10. hs, the density-based solver: gates first, card against the CPU path
+   in float64 (both sides, and cj_speed, in worker processes side by side,
+   all done before anything is timed): the
+   2D H2-air detonation at 64 x 8 (igniters over the lower half), 2 steps,
+   fields within 1e-8; the Sod tube (tests/data/air.yaml, 400 cells) once
+   per flux scheme and once with WENO5, fields within 1e-8 and the plateau
+   within 3 % of the exact p* and u*. Then the reference's 2000 x 100
+   channel (deepflame_torch.cases.detonation_2d_h2) in float32, its
+   solver from runtime.factory.build_high_speed_solver with a CaseConfig,
+   2 warm-up and 5 timed steps through run_case (launch counts set to 0
+   just before, read just after; gj_inverse must launch); the chemistry
+   split's share of one more step; one split with every cell active (a
+   labelled measurement, not the path); cj_speed on the test mechanism
+   (three points, the test's options);
+11. fgm, the flareFGM solver on data/flare_CH4_drm19_SandiaD_4D.tbl: the
+   Sandia D jet at 96 x 48 in float64, 2 steps, card against CPU with the
+   table and with a seeded DeepFGM (fields 1e-8, velocity and fluxes
+   1e-6); the native and the Python parser's seconds on the nc41 table;
+   the jet at 1024 x 512 in float32, 2 warm-up and 5 timed steps (the
+   stencil and Helmholtz kernels must launch), the table lookups' share of
+   one more step;
+12. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -246,27 +267,33 @@ def phase_kernels(torch, K, jet_conn) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    # --- stencil: the 9-species batch at 96^3 (periodic) and at the
-    # structured jet's 128 x 64 x 64 (boundary coefficients zeroed), float32
+    # --- stencil: the 9-species batch at 96^3 (periodic), at the structured
+    # jet's 128 x 64 x 64 and at the FGM jet's 1024 x 512 x 1 (one scalar
+    # and the three momentum components; boundary coefficients zeroed),
+    # float32
     S, n = 9, 96
     out["stencil7_apply"] = _stencil_row(torch, K, g, (S, n, n, n), False)
     row = _stencil_row(torch, K, g, (S, 2 * N_JET, N_JET, N_JET), True)
     print("stencil7_apply at the structured jet's shape: " + json.dumps(row))
     out["stencil7_apply"]["sjet_shape"] = row
+    out["stencil7_apply"]["fgm_shapes"] = []
+    for lanes in (1, 3):
+        row = _stencil_row(torch, K, g, (lanes, FGM_NX, FGM_NY, 1), True)
+        print("stencil7_apply at the FGM jet's shape: " + json.dumps(row))
+        out["stencil7_apply"]["fgm_shapes"].append(row)
 
     # --- Helmholtz: the pressure operator at 96^3, float32, main-path
     # spacing; then the structured jet's 128 x 64 x 64 and each level of its
-    # multigrid hierarchy
+    # multigrid hierarchy; then the FGM jet's 1024 x 512 x 1 at its spacing
     h = 2.0 * math.pi * 1e-3 / n
-    sets = []
-    for _ in range(4):
-        xp = torch.randn((n + 2,) * 3, generator=g, device=dev)
-        gam = tuple(torch.rand(s, generator=g, device=dev) * 1e-6 + 1e-7
-                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
-        d = torch.rand((n, n, n), generator=g, device=dev) * 3.0 + 1.0
-        sets.append((xp, gam, d, (h, h, h)))
-    out["helmholtz7_apply"] = _helmholtz_row(torch, K, sets)
+    out["helmholtz7_apply"] = _helmholtz_row(
+        torch, K, _helmholtz_sets(torch, g, (n, n, n), (h, h, h)))
     out["helmholtz7_apply"]["sjet_levels"] = _helmholtz_levels(torch, K, g)
+    h = FGM_LX / FGM_NX
+    row = _helmholtz_row(torch, K, _helmholtz_sets(
+        torch, g, (FGM_NX, FGM_NY, 1), (h, h, h)))
+    print("helmholtz7_apply at the FGM jet's shape: " + json.dumps(row))
+    out["helmholtz7_apply"]["fgm_shape"] = row
 
     out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
@@ -337,6 +364,22 @@ def _helmholtz_row(torch, K, sets) -> dict:
         **timings(torch, K.helmholtz7_apply, "helmholtz7_kernel",
                   K.helmholtz_apply_plain, sets),
         bound_ms=b_ms, bound_by=b_by, shape=[nx, ny, nz], dtype="float32")
+
+
+def _helmholtz_sets(torch, g, shape, spacing) -> list:
+    """Four seeded operand sets of helmholtz7_apply on a mesh of `shape`:
+    x padded N(0, 1), face coefficients in [1e-7, 1.1e-6], diag in
+    [1, 4], float32."""
+    nx, ny, nz = shape
+    sets = []
+    for _ in range(4):
+        xp = torch.randn((nx + 2, ny + 2, nz + 2), generator=g, device="cuda")
+        gam = tuple(torch.rand(s, generator=g, device="cuda") * 1e-6 + 1e-7
+                    for s in ((nx + 1, ny, nz), (nx, ny + 1, nz),
+                              (nx, ny, nz + 1)))
+        d = torch.rand(shape, generator=g, device="cuda") * 3.0 + 1.0
+        sets.append((xp, gam, d, spacing))
+    return sets
 
 
 def _helmholtz_levels(torch, K, g) -> list:
@@ -432,7 +475,9 @@ def _gj_figures(torch, K, g) -> dict:
     lanes in float32 (the kernels line's entry) and float64 (its own
     line); float32 n = 10 at the lane counts the chemistry launches it
     with, a bin and the cold slab of the jet (4,096 and 32,768 lanes) and of
-    the TGV (6,912 and 55,296), as `path_shapes`; n = 54 (gri30's size) at
+    the TGV (6,912 and 55,296), and the detonation's split: its igniters'
+    hot cells (40 lanes, part of one block) and the whole 2000 x 100
+    channel (200,000), as `path_shapes`; n = 54 (gri30's size) at
     4,096 lanes in both types, as `n54`. At 2^17 lanes the six input sets
     exceed the 50 MB L2 cache together, so each call reads cold inputs; at
     the path shapes they lie in it together, as the integrator's freshly
@@ -449,7 +494,7 @@ def _gj_figures(torch, K, g) -> dict:
           + json.dumps(_gj_row(torch, K, g, 10, 1 << 17, torch.float64)))
     entry["empty_launch_ms"] = floor
     entry["path_shapes"] = []
-    for L in (4096, 6912, 32768, 55296):
+    for L in (4096, 6912, 32768, 55296, 40, HS_NX * HS_NY):
         row = _gj_row(torch, K, g, 10, L, torch.float32)
         print(f"gj_inverse n=10 L={L} f32: " + json.dumps(row))
         entry["path_shapes"].append(row)
@@ -662,7 +707,8 @@ def _ell_figures(torch, K, g, conn) -> dict:
     return rows["f32"]
 
 
-# kernels each path must launch during its timed steps
+# kernels each path must launch during its timed steps (hs and fgm check
+# theirs in their phases: gj_inverse; stencil7_apply and helmholtz7_apply)
 PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
                 "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused"),
                 "fl": ("ell_matvec", "gj_inverse"),
@@ -979,6 +1025,28 @@ def _check_dnn_rates(torch, solver, state) -> None:
           "the chemistry's Y does not sum to 1")
 
 
+def _timed_inside(torch, owner, attr, run):
+    """run() with owner.attr timed inside it, synchronised before and after
+    each call: (seconds of run, [seconds of each call])."""
+    inner, spent = getattr(owner, attr), []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t1)
+        return r
+    setattr(owner, attr, timed)
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spent
+    finally:
+        setattr(owner, attr, inner)
+
+
 def _breakdown_step(torch, solver, state, path: str) -> None:
     """One more step with the chemistry call timed inside it (synchronised
     before and after), for the chemistry's share of a step: the stiff
@@ -990,24 +1058,8 @@ def _breakdown_step(torch, solver, state, path: str) -> None:
     owner, attr = {"dnn": (DNNChemistry, "correct"),
                    "sjet-pasr": (PaSR, "correct")}.get(
                        path, (basic, "solve_chemistry"))
-    inner, spent = getattr(owner, attr), []
-
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(*a, **k)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return out
-
-    setattr(owner, attr, timed)
-    try:
-        t0 = time.perf_counter()
-        solver.step(state, STEP_DT[path])
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        setattr(owner, attr, inner)
+    total, spent = _timed_inside(torch, owner, attr,
+                                 lambda: solver.step(state, STEP_DT[path]))
     print(f"{path} breakdown step: {total * 1e3:.2f} ms, of which chemistry "
           f"{spent[0] * 1e3:.2f} ms ({spent[0] / total:.3f})")
 
@@ -1591,6 +1643,395 @@ def phase_light(torch, K, sjet_state, sjet_solver, T_tci) -> None:
           f"the light checks)")
 
 
+# ------------------------------------------------ density-based solver, FGM
+
+AIR = os.path.join(HERE, "tests", "data", "air.yaml")
+FGM_TABLE = os.path.join(HERE, "data", "flare_CH4_drm19_SandiaD_4D.tbl")
+FGM_TABLE_NC41 = os.path.join(HERE, "data",
+                              "flare_CH4_drm19_SandiaD_4D_nc41.tbl")
+HS_NX, HS_NY, HS_STEPS = 2000, 100, 5      # the reference's 2D channel
+FGM_NX, FGM_NY, FGM_STEPS = 1024, 512, 5   # the structured jet's cell count
+FGM_DT = 4e-6 * 96 / FGM_NX                # the example's Courant number
+FGM_LX = 0.12           # sandia_d_fgm_2d's slab length: spacing FGM_LX / nx
+SOD_RUNS = (("HLLC", "vanLeer"), ("HLLCP", "vanLeer"), ("AUSMDV", "vanLeer"),
+            ("Kurganov", "vanLeer"), ("Tadmor", "vanLeer"), ("HLLC", "WENO5"))
+HS_FIELDS = ("rho", "rhoU", "rhoE", "rhoY", "T")
+FGM_FIELDS = ("rho", "p", "Z", "Zvar", "c", "cvar", "T", "He")
+
+
+def _pool(workers: int):
+    """Worker processes for the hs and fgm gates, card and CPU sides, which
+    are host-bound and so run side by side (spawned, so that no CUDA state
+    is inherited; each opens its own context on the card; shut down by the
+    caller before anything is timed)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def _worker_torch():
+    sys.path.insert(0, HERE)
+    import torch
+    torch.set_num_threads(2)
+    return torch
+
+
+def _as_numpy(state, fields) -> dict:
+    return {k: (tuple(t.cpu().numpy() for t in getattr(state, k))
+                if isinstance(getattr(state, k), tuple)
+                else getattr(state, k).cpu().numpy()) for k in fields}
+
+
+def _field_gate(torch, label, a, b, fields, tol, flow=(), flow_tol=None):
+    """Card fields a against CPU fields b (dicts of numpy arrays): each
+    field's largest deviation over its largest magnitude within tol (flow
+    fields within flow_tol)."""
+    errs = {}
+    for k in fields + flow:
+        xs = a[k] if isinstance(a[k], tuple) else (a[k],)
+        ys = b[k] if isinstance(b[k], tuple) else (b[k],)
+        errs[k] = max(max_rel_err(torch, torch.as_tensor(u),
+                                  torch.as_tensor(v))[1]
+                      for u, v in zip(xs, ys))
+    print(f"{label}: card vs CPU, largest deviation over largest value "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+    for k, v in errs.items():
+        check(v <= (flow_tol if k in flow else tol), f"{label}: {k} {v:.3e}")
+
+
+def _hs_case():
+    from deepflame_torch.runtime import config as C
+    return C.CaseConfig(
+        chemistry=C.ChemistryProperties(mechanism_file=MECH, ode_rtol=1e-4,
+                                        ode_atol=1e-8),
+        schemes=C.Schemes(flux_scheme="HLLC", limiter="vanLeer", rk_order=2),
+        dtype="float32")
+
+
+def phase_hs(torch, K):
+    """The density-based solver. First, side by side in worker processes
+    (card and CPU sides, all host-bound): the 2D detonation at 64 x 8 in
+    float64 (igniters over the lower half so that cells burn), 2 steps,
+    card against CPU within 1e-8; the Sod tube (air.yaml, 400 cells) per
+    flux scheme and with WENO5 in float64, card against CPU within 1e-8 and
+    the plateau within 3 % of the exact p* and u*; cj_speed on the card.
+    Then, the workers gone, the reference's 2000 x 100 channel in float32
+    from factory.build_high_speed_solver through run_case: 2 warm-up and
+    HS_STEPS timed steps (launch counts set to 0 just before, read just
+    after); the chemistry split timed in one more step; one split with
+    every cell active (the case's composition at 1500 K and 20 atm, a
+    labelled measurement). Returns (launch counts of the timed steps,
+    ms/step)."""
+    with _pool(7) as pool:
+        cj = pool.submit(_cj)
+        det = {dev: pool.submit(_hs_detonation, dev) for dev in ("cuda", "cpu")}
+        sod = {(run, dev): pool.submit(_hs_sod, dev, *run)
+               for run in SOD_RUNS for dev in ("cuda", "cpu")}
+        t0 = time.perf_counter()
+        (card, diag), (ref, _) = det["cuda"].result(), det["cpu"].result()
+        _field_gate(torch, "hs detonation 64 x 8 float64, 2 steps", card, ref,
+                    HS_FIELDS, 1e-8)
+        check(diag["chem_lanes"] > 0, "hs: no cell burned at 64 x 8")
+        print(f"hs detonation gate: {diag['chem_lanes']} active lanes, "
+              f"{diag['chem_trips']} trips in the last step; "
+              f"{time.perf_counter() - t0:.1f} s waited")
+        for run in SOD_RUNS:
+            (card, star), (ref, _) = (sod[run, "cuda"].result(),
+                                      sod[run, "cpu"].result())
+            _field_gate(torch, "hs Sod {}/{}".format(*run), card, ref,
+                        HS_FIELDS, 1e-8)
+            print("hs Sod {}/{}: ".format(*run) + star["line"])
+            check(star["ok"], "hs Sod {}/{}: star state off by more than 3 "
+                              "%".format(*run))
+        D, T_cj, p_cj, line = cj.result()
+        print(line)
+        check(1500.0 < D < 2500.0 and 2000.0 < T_cj < 3500.0,
+              f"hs: cj_speed out of range ({D}, {T_cj})")
+    return _hs_path(torch, K)
+
+
+
+def _hs_detonation(dev: str):
+    """The 64 x 8 float64 detonation after 2 steps on `dev` (a worker):
+    (fields as numpy, {active lanes, trips of the last step})."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import detonation_2d_h2, detonation_dt
+    solver, s = detonation_2d_h2(MECH, nx=64, ny=8, dtype=torch.float64,
+                                 device=dev, igniters=((0.0, 0.05),))
+    for _ in range(2):
+        s, diag = solver.step(s, detonation_dt(solver))
+    return _as_numpy(s, HS_FIELDS), dict(chem_lanes=diag["chem_lanes"],
+                                         chem_trips=int(diag["chem_trips"]))
+
+
+def _hs_sod(dev: str, flux: str, lim: str):
+    """The Sod tube (400 cells, float64) run to its end on `dev` (a
+    worker): (fields as numpy, the plateau's p and u against the exact star
+    state: {"ok": within 3 %, "line": what to print})."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import sod_shock_tube
+    t0 = time.perf_counter()
+    solver, s, plan = sod_shock_tube(AIR, n=400, flux=flux, limiter=lim,
+                                     device=dev)
+    for _ in range(plan["n_steps"]):
+        s, _ = solver.step(s, plan["dt"])
+    rho, U, p, T, _ = solver.primitives(s)
+    X = solver.mesh.cell_centers(torch.float64)[0].squeeze()
+    m = (X > plan["window"][0]) & (X < plan["window"][1])
+    ps = float(p.squeeze()[m].mean())
+    us = float(U[0].squeeze()[m].mean())
+    star = dict(
+        ok=(abs(ps - plan["p_star"]) < 0.03 * plan["p_star"]
+            and abs(us - plan["u_star"]) < 0.03 * plan["u_star"]),
+        line=(f"{plan['n_steps']} steps, p* {ps:.1f} Pa (exact "
+              f"{plan['p_star']:.1f}), u* {us:.3f} m/s (exact "
+              f"{plan['u_star']:.3f}), {time.perf_counter() - t0:.1f} s on "
+              f"{dev}"))
+    return _as_numpy(s, HS_FIELDS), star
+
+
+def _hs_path(torch, K):
+    """The reference's 2000 x 100 channel (see phase_hs)."""
+    from deepflame_torch.cases import detonation_2d_h2, detonation_dt
+    from deepflame_torch.runtime.config import ControlDict
+    from deepflame_torch.runtime.driver import run_case
+    from deepflame_torch.solvers.high_speed import HighSpeedSolver
+    t0 = time.perf_counter()
+    solver, state = detonation_2d_h2(MECH, nx=HS_NX, ny=HS_NY,
+                                     dtype=torch.float32, device="cuda",
+                                     case=_hs_case())
+    torch.cuda.synchronize()
+    Y_case = state.rhoY / state.rho
+    dt = detonation_dt(solver)
+    n_cells = state.T.numel()
+    print(f"hs path: {HS_NX} x {HS_NY} float32 detonation channel from "
+          f"factory.build_high_speed_solver ({solver.config.flux}, RK"
+          f"{solver.config.rk_order}, {solver.config.limiter}, rtol "
+          f"{solver.config.ode_opts.rtol:g}, atol "
+          f"{solver.config.ode_opts.atol:g}), dt {dt:.6e} s, "
+          f"{int((state.T > 500.0).sum())} hot cells, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    state = run_case(solver, state, ControlDict(end_time=2 * dt, delta_t=dt,
+                                                write_interval=1.0),
+                     log_every=2)
+    torch.cuda.synchronize()
+    print(f"hs warm-up: 2 steps in {time.perf_counter() - t0:.2f} s")
+    rec = _Recorder(solver)
+    T_before = state.T.clone()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    state = run_case(rec, state._replace(time=torch.zeros_like(state.time)),
+                     ControlDict(end_time=HS_STEPS * dt, delta_t=dt,
+                                 write_interval=1.0), log_every=HS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    ms = wall / HS_STEPS * 1e3
+    check(len(rec.diags) == HS_STEPS, f"hs: run_case took {len(rec.diags)} "
+                                      f"steps, not {HS_STEPS}")
+    lanes = [d["chem_lanes"] for d in rec.diags]
+    need = [int(d["chem_trips"]) for d in rec.diags]
+    print(f"hs path counts over {HS_STEPS} steps: {json.dumps(counts)}; per "
+          f"step " + json.dumps({k: v / HS_STEPS for k, v in counts.items()}))
+    print(f"hs path: {ms:.2f} ms/step through run_case, "
+          f"{n_cells / (wall / HS_STEPS):.4e} cell-updates/s ({n_cells} "
+          f"cells), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"hs chemistry: active lanes per step {lanes}; gj_inverse trips "
+          f"run {counts['gj_inverse']} in {HS_STEPS} steps, needed "
+          f"{sum(need)} (per step {need})")
+    rho, U, p, T, _ = solver.primitives(state)
+    ix = int(p.amax(dim=(1, 2)).argmax())
+    x_pmax = solver.mesh.x0 + (ix + 0.5) * solver.mesh.dx
+    print(f"hs state: T_max {float(T.max()):.2f} K, p_max "
+          f"{float(p.max()):.6e} Pa at x = {x_pmax * 1e3:.2f} mm, u_max "
+          f"{float(rec.diags[-1]['u_max']):.2f} m/s")
+    check(counts["gj_inverse"] > 0, f"hs: gj_inverse was not launched: "
+                                    f"{counts}")
+    check(bool(torch.isfinite(state.rhoE).all() and torch.isfinite(T).all()),
+          "hs: non-finite state")
+    check(float((state.T - T_before).abs().max()) > 0.0, "hs: T did not change")
+    check(float(p.min()) > 0 and float(rho.min()) > 0, "hs: p or rho <= 0")
+    check(float((state.rhoY.sum(0) - state.rho).abs().max())
+          <= 1e-4 * float(state.rho.max()), "hs: rhoY does not sum to rho")
+
+    total, spent = _timed_inside(torch, HighSpeedSolver, "_chemistry_split",
+                                 lambda: solver.step(state, dt))
+    print(f"hs breakdown step: {total * 1e3:.2f} ms, of which the chemistry "
+          f"split {spent[0] * 1e3:.2f} ms ({spent[0] / total:.3f})")
+
+    # a labelled measurement: the split with every cell active
+    full = solver.initial_state(torch.full_like(state.T, 20 * 101325.0),
+                                torch.full_like(state.T, 1500.0), Y_case)
+    stats = {}
+    n0 = K.launches["gj_inverse"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver._chemistry_split(full, dt, stats)
+    torch.cuda.synchronize()
+    print(f"hs split, every cell active (labelled, not the path; 1500 K, 20 "
+          f"atm, the case's composition): {stats['chem_lanes']} lanes, "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, gj_inverse trips run "
+          f"{K.launches['gj_inverse'] - n0}, needed {int(stats['chem_trips'])}")
+    check(stats["chem_lanes"] == n_cells, "hs: not every lane was active")
+    return counts, ms
+
+
+def _cj():
+    """cj_speed on the card (a worker) for the test mechanism:
+    stoichiometric H2-air at 1 atm and 300 K (the reference's 1D
+    detonation), three Hugoniot points with the test's options (its
+    default options take some 3,000 trips a relaxation and more, at about
+    60 ms a trip). Returns (D, T, p, the line to print)."""
+    import numpy as np
+    _worker_torch()
+    import deepflame_torch.chemistry as tc
+    from deepflame_torch.chemistry.integrator import RosenbrockOptions
+    from deepflame_torch.utils.cj import cj_speed
+    mech = tc.load_mechanism(MECH, device="cuda")
+    Y0 = np.zeros(mech.n_species)
+    iH2, iO2, iN2, iH2O = (mech.species_index(s)
+                           for s in ("H2", "O2", "N2", "H2O"))
+    Y0[iH2], Y0[iO2], Y0[iN2] = 0.02851, 0.226, 0.745
+    Y0 /= Y0.sum()
+    Yb = Y0.copy()
+    wO2 = Y0[iH2] / 2.016 * 0.5 * 31.998
+    Yb[iH2O] = Y0[iH2] + wO2
+    Yb[iO2] -= wO2
+    Yb[iH2] = 0.0
+    args = dict(x_range=(0.52, 0.60), n_x=3, relax_time=3e-6,
+                opts=RosenbrockOptions(rtol=1e-4, atol=1e-8, max_steps=20000))
+    t0 = time.perf_counter()
+    D, T_cj, p_cj = cj_speed(tc.make_thermo(mech), tc.make_kinetics(mech),
+                             Y0, Yb, 101325.0, 300.0, **args)
+    shown = dict(args, opts=args["opts"]._asdict())
+    return D, T_cj, p_cj, (
+        f"hs cj_speed ({json.dumps(shown)}): D_CJ {D:.4f} m/s, T_CJ "
+        f"{T_cj:.2f} K, p_CJ {p_cj:.6e} Pa, {time.perf_counter() - t0:.2f} "
+        f"s wall on the card, under contention: in a worker beside the six "
+        f"gate workers (no anchor: H2_Li is not in the repository)")
+
+
+def _seeded_deep_fgm(device, dtype):
+    """A DeepFGM of seeded weights (hidden 64, 64, 32) whose outputs stay
+    near a burnt manifold's (T about 1200 K)."""
+    import numpy as np
+    from deepflame_torch.convert import deep_fgm_from_numpy
+    rng = np.random.default_rng(2)
+    sizes = (4, 64, 64, 32, 8)
+    params = [(rng.normal(0, (2.0 / sizes[i]) ** 0.5, (sizes[i], sizes[i + 1])),
+               rng.normal(0, 0.1, sizes[i + 1])) for i in range(4)]
+    norm = (np.array([0.3, 0.5, 0.1, 0.1]), np.array([0.3, 0.3, 0.1, 0.1]),
+            np.array([50.0, 5.0, 1.0, 1500.0, 25.0, -1e4, 1200.0, 5e-5]),
+            np.array([5.0, 0.5, 0.1, 10.0, 0.2, 1e3, 20.0, 1e-6]))
+    return deep_fgm_from_numpy(params, *norm, dtype=dtype, device=device)
+
+
+def _fgm_gate_case(dev: str, deep: bool):
+    """The Sandia D jet at the example's 96 x 48 in float64 after 2 steps of
+    4e-6 s on `dev` (a worker), with the table or a seeded DeepFGM: its
+    fields as numpy."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import sandia_d_fgm_2d
+    net = _seeded_deep_fgm(dev, torch.float64) if deep else None
+    solver, s = sandia_d_fgm_2d(FGM_TABLE, nx=96, ny=48, dtype=torch.float64,
+                                device=dev, deepfgm=net)
+    for _ in range(2):
+        s, _ = solver.step(s, 4e-6)
+    return _as_numpy(s, FGM_FIELDS + ("U", "phi"))
+
+
+def phase_fgm(torch, K):
+    """The flareFGM solver. Gates first, in worker processes: the Sandia D
+    jet at the example's 96 x 48 in float64, 2 steps, card against CPU,
+    with the table and with a seeded DeepFGM (fields within 1e-8, velocity
+    and fluxes 1e-6); the
+    native and the Python parser's seconds on the 4.3 MB nc41 table. Then
+    FGM_NX x FGM_NY in float32 on the Sandia D table, 2 warm-up and
+    FGM_STEPS timed steps of FGM_DT (launch counts set to 0 just before,
+    read just after). Returns (launch counts of the timed steps,
+    ms/step)."""
+    from deepflame_torch.cases import sandia_d_fgm_2d
+    from deepflame_torch.combustion.fgm import read_flare_table
+    t0 = time.perf_counter()
+    with _pool(4) as pool:
+        runs = {(deep, dev): pool.submit(_fgm_gate_case, dev, deep)
+                for deep in (False, True) for dev in ("cuda", "cpu")}
+        for deep in (False, True):
+            label = "DeepFGM" if deep else "table"
+            _field_gate(torch, f"fgm 96 x 48 float64 {label}, 2 steps",
+                        runs[deep, "cuda"].result(),
+                        runs[deep, "cpu"].result(), FGM_FIELDS, 1e-8,
+                        ("U", "phi"), 1e-6)
+    print(f"fgm gates: {time.perf_counter() - t0:.1f} s")
+    secs = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        tb = read_flare_table(FGM_TABLE_NC41, dtype=torch.float32,
+                              use_native=native, device="cuda")
+        torch.cuda.synchronize()
+        secs["native" if native else "python"] = time.perf_counter() - t0
+    print(f"fgm parsers on {os.path.basename(FGM_TABLE_NC41)} "
+          f"({os.path.getsize(FGM_TABLE_NC41)} bytes, shape {tb.shape}): "
+          f"native {secs['native']:.3f} s (g++ build included), Python "
+          f"{secs['python']:.3f} s")
+
+    t0 = time.perf_counter()
+    solver, state = sandia_d_fgm_2d(FGM_TABLE, nx=FGM_NX, ny=FGM_NY,
+                                    dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_cells = state.T.numel()
+    print(f"fgm path: Sandia D jet {FGM_NX} x {FGM_NY} float32 on "
+          f"{os.path.basename(FGM_TABLE)}, dt {FGM_DT:g} s, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, diag = solver.step(state, FGM_DT)
+        torch.cuda.synchronize()
+        print(f"fgm warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    T_before = state.T.clone()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    iters = []
+    t0 = time.perf_counter()
+    for _ in range(FGM_STEPS):
+        state, diag = solver.step(state, FGM_DT)
+        iters.append(diag)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launches)
+    ms = wall / FGM_STEPS * 1e3
+    print(f"fgm path counts over {FGM_STEPS} steps: {json.dumps(counts)}; "
+          f"per step " + json.dumps({k: v / FGM_STEPS
+                                     for k, v in counts.items()}))
+    print(f"fgm path: {ms:.2f} ms/step, "
+          f"{n_cells / (wall / FGM_STEPS):.4e} cell-updates/s ({n_cells} "
+          f"cells), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    keys = [k for k in iters[0] if k.startswith("iters_")]
+    print("fgm solver iterations per timed step: " + json.dumps(
+        {k: [int(d[k]) for d in iters] for k in keys}))
+    from deepflame_torch.solvers.fgm import FGMSolver
+    total, spent = _timed_inside(torch, FGMSolver, "_lookup_state",
+                                 lambda: solver.step(state, FGM_DT))
+    print(f"fgm breakdown step: {total * 1e3:.2f} ms, of which {len(spent)} "
+          f"table lookups of the state {sum(spent) * 1e3:.2f} ms "
+          f"({sum(spent) / total:.3f})")
+    print(f"fgm state: T_max {float(state.T.max()):.2f} K, c_max "
+          f"{float(state.c.max()):.4f}, Z_max {float(state.Z.max()):.4f}")
+    check(counts["stencil7_apply"] > 0 and counts["helmholtz7_apply"] > 0,
+          f"fgm: a kernel of the path was not launched: {counts}")
+    check(bool(torch.isfinite(state.T).all() and torch.isfinite(state.p).all()),
+          "fgm: non-finite T or p")
+    check(float((state.T - T_before).abs().max()) > 0.0, "fgm: T did not change")
+    check(0.0 <= float(state.c.min()) and float(state.c.max()) <= 1.0,
+          "fgm: c out of [0, 1]")
+    return counts, ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1599,10 +2040,10 @@ def main() -> int:
                          "FILE with _stiff, _dnn, _fl and _sjet before its "
                          "extension")
     ap.add_argument("--phases", metavar="LIST",
-                    help="run only these of tci, sjet-pasr, sjet-edc and "
-                         "light (comma-separated; light needs tci and "
-                         "sjet-pasr) after the build, and end without the "
-                         "result lines")
+                    help="run only these of tci, sjet-pasr, sjet-edc, "
+                         "light, hs and fgm (comma-separated; light needs "
+                         "tci and sjet-pasr) after the build, and end "
+                         "without the result lines")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1651,6 +2092,12 @@ def main() -> int:
         if "light" in only:
             phase_light(torch, K, state, solver, tci["PaSR"].T)
             phase_done("light")
+        if "hs" in only:
+            phase_hs(torch, K)
+            phase_done("hs")
+        if "fgm" in only:
+            phase_fgm(torch, K)
+            phase_done("fgm")
         print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
               f"phase {json.dumps(seconds)}")
         print(card)
@@ -1692,6 +2139,10 @@ def main() -> int:
     phase_light(torch, K, state, solver, tci["PaSR"].T)
     del solver, state, tci
     phase_done("light")
+    counts["hs"], ms["hs"] = phase_hs(torch, K)
+    phase_done("hs")
+    counts["fgm"], ms["fgm"] = phase_fgm(torch, K)
+    phase_done("fgm")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

@@ -3,9 +3,14 @@
 DNN-chemistry variant of the 3D one that `tools/bench_dnn.py` builds, and
 the 3D LES jet flame of `__graft_entry__._build_3d_jet`, on its structured
 box (`jet_flame_3d_les`, the case `bench.py` times) and on a blockMesh mesh
-(`jet_flame_3d_les_fl`, the face-list path).
+(`jet_flame_3d_les_fl`, the face-list path); the density-based solver's
+2D H2-air detonation channel (`detonation_2d_h2`, examples/detonation_2d.py)
+and Sod shock tube (`sod_shock_tube`, tests/test_high_speed.py); and the
+flareFGM solver's 2D Sandia D jet (`sandia_d_fgm_2d`,
+examples/sandia_d_fgm_2d.py).
 
-Each returns (solver, state) on `device` (default: the CUDA card).
+Each returns (solver, state) on `device` (default: the CUDA card); the Sod
+tube also its run plan.
 """
 from __future__ import annotations
 
@@ -20,15 +25,19 @@ from .chemistry import load_mechanism, make_kinetics, make_thermo, make_transpor
 from .chemistry.integrator import RosenbrockOptions
 from .chemistry.dnn import LAYERS, DFODENet, init_params
 from .combustion import DNNChemistry, Laminar
+from .constants import GAS_CONSTANT
 from .mesh import (StructuredMesh, build_blockmesh, cyclic, empty, fixed_value,
-                   parse_blockmesh_dict, zero_gradient)
+                   parse_blockmesh_dict, symmetry, zero_gradient)
 from .solvers import LowMachConfig, LowMachSolver, LowMachSolverFL
+from .solvers.high_speed import HighSpeedConfig, HighSpeedSolver
 from .turbulence import sigma_model
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
            "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl",
-           "jet_with_combustion", "jet_function_objects", "jet_fields"]
+           "jet_with_combustion", "jet_function_objects", "jet_fields",
+           "detonation_2d_h2", "detonation_dt", "sod_shock_tube",
+           "sandia_d_fgm_2d"]
 
 
 def _fresh_mixture(mech):
@@ -401,3 +410,151 @@ def jet_function_objects(solver, out_dir: str, dt: float,
         objs.insert(6, F.VolFieldValue(mesh, ("Z",), ("volIntegrate",),
                                        out_dir=sub("volFieldValue_Z")))
     return D.DerivedFields(specs, F.FunctionObjectSet(objs))
+
+
+# the reference's twoD_detonationH2: three staggered 100 atm / 2000 K igniter
+# boxes at the left wall (system/setFieldsDict), y bands [m]
+DETONATION_IGNITERS = ((0.001, 0.003), (0.004, 0.006), (0.007, 0.009))
+
+
+def detonation_2d_h2(mech_path: str, nx: int = 2000, ny: int = 100,
+                     dtype=torch.float32, device=None, case=None,
+                     igniters=DETONATION_IGNITERS):
+    """2D H2-air detonation channel (dfHighSpeedFoam twoD_detonationH2,
+    examples/detonation_2d.py without AMR): 2 m x 0.1 m, nx x ny cells,
+    Y_H2/O2/N2 = 0.01724/0.13793/0.84483 at 1 atm and 300 K, the igniter
+    boxes (y bands `igniters`, x below max(2 mm, 2.5 dx)) at 100 atm and
+    2000 K. Reflecting left wall, transmissive right, slip walls. HLLC,
+    RK2, vanLeer, split ODE chemistry (rtol 1e-4, atol 1e-8, 5000 steps,
+    T_threshold 500 K); with `case` (a CaseConfig) the solver is the
+    factory's (`build_high_speed_solver`) instead. Step: `detonation_dt`."""
+    mech = load_mechanism(mech_path, device=device)
+    Lx, Ly = 2.0, 0.1
+    mesh = StructuredMesh.box([Lx, Ly, Ly / ny], [nx, ny, 1],
+                              device=mech.device)
+    e = (empty(), empty())
+    zg = (zero_gradient(), zero_gradient())
+    wall_n = (symmetry(negate=True), symmetry(negate=True))
+    b_scalar = (zg, zg, e)
+    bcs_U = (((symmetry(negate=True), zero_gradient()), zg, e),
+             (zg, wall_n, e), b_scalar)
+    if case is not None:
+        from .runtime.factory import build_high_speed_solver
+        solver, mech = build_high_speed_solver(case, mesh, b_scalar, bcs_U,
+                                               b_scalar, b_scalar)
+    else:
+        cfg = HighSpeedConfig(
+            flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
+            ode_opts=RosenbrockOptions(rtol=1e-4, atol=1e-8, max_steps=5000),
+            T_threshold=500.0)
+        solver = HighSpeedSolver(mesh=mesh, thermo=make_thermo(mech, dtype),
+                                 kinetics=make_kinetics(mech, dtype),
+                                 bcs_rho=b_scalar, bcs_U=bcs_U,
+                                 bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+    dtype = solver.dtype
+    Yv = np.zeros(mech.n_species)
+    for name, y in (("H2", 0.01724), ("O2", 0.13793), ("N2", 0.84483)):
+        Yv[mech.species_index(name)] = y
+    Yv /= Yv.sum()
+    X, Yg, _ = mesh.cell_centers(dtype)
+    wx = max(0.002, 2.5 * mesh.dx)
+    hot = torch.zeros(mesh.shape, dtype=torch.bool, device=mesh.device)
+    for y0, y1 in igniters:
+        hot = hot | ((X < wx) & (Yg >= y0) & (Yg < y1))
+    p0, T0 = 101325.0, 300.0
+    T = torch.where(hot, 2000.0, T0).to(dtype)
+    p = torch.where(hot, 100.0 * p0, p0).to(dtype)
+    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    return solver, solver.initial_state(p, T, Y.contiguous())
+
+
+def detonation_dt(solver, cfl: float = 0.3, a_bound: float = 3200.0) -> float:
+    """The detonation's step: cfl dx / a_bound (examples/detonation_2d.py)."""
+    return cfl * solver.mesh.dx / a_bound
+
+
+def sod_shock_tube(mech_path: str, n: int = 400, flux: str = "HLLC",
+                   limiter: str = "vanLeer", rk: int = 2,
+                   dtype=torch.float64, device=None):
+    """Dimensional Sod problem in a one-species gas (tests/data/air.yaml,
+    gamma ~ 1.4) on a 1 m tube of n cells, transmissive ends
+    (tests/test_high_speed.py): p 1e5 / 1e4 Pa, rho 1 / 0.125 kg/m^3.
+    Returns (solver, state, plan): plan holds dt, n_steps (the shock
+    travels about 0.3 of the tube), the exact star pressure and velocity
+    p_star, u_star, and the plateau window (0.55, 0.65) m."""
+    mech = load_mechanism(mech_path, device=device)
+    th, kin = make_thermo(mech, dtype), make_kinetics(mech, dtype)
+    mesh = StructuredMesh.box([1.0, 1e-2, 1e-2], [n, 1, 1], device=mech.device)
+    bx = ((zero_gradient(), zero_gradient()), (empty(), empty()),
+          (empty(), empty()))
+    solver = HighSpeedSolver(
+        mesh=mesh, thermo=th, kinetics=kin, bcs_rho=bx, bcs_U=(bx, bx, bx),
+        bcs_p=bx, bcs_Y=bx, config=HighSpeedConfig(
+            flux=flux, rk_order=rk, limiter=limiter, chemistry="none"))
+    X, _, _ = mesh.cell_centers(dtype)
+    pL, pR, rhoL, rhoR = 1e5, 1e4, 1.0, 0.125
+    W = float(mech.molecular_weights[0])
+    T = torch.where(X < 0.5, pL * W / (rhoL * GAS_CONSTANT),
+                    pR * W / (rhoR * GAS_CONSTANT))
+    p = torch.where(X < 0.5, pL, pR).to(dtype)
+    state = solver.initial_state(p, T, torch.ones((1,) + mesh.shape))
+    a0 = math.sqrt(1.4 * pL / rhoL)
+    dt = 0.4 * mesh.dx / (a0 * 1.8)
+    plan = dict(dt=dt, n_steps=int(0.25 / a0 * 1.0 / dt), p_star=0.30313 * pL,
+                u_star=0.92745 * math.sqrt(pL / rhoL), window=(0.55, 0.65))
+    return solver, state, plan
+
+
+def sandia_d_fgm_2d(table_path: str, nx: int = 96, ny: int = 48,
+                    dtype=torch.float32, device=None, deepfgm=None,
+                    use_native: bool = True):
+    """2D Sandia-flame-D-family jet on the flareFGM solver
+    (examples/sandia_d_fgm_2d.py; the reference's twoD_SandiaD_flareFGM) on
+    a FlaRe table (data/flare_CH4_drm19_SandiaD_4D.tbl and its .json with
+    Z_st): a 0.12 m x 0.06 m slab of nx x ny cells; the inlet at x = 0
+    carries the main jet (y < 3.6 mm, Z = 1, 12 m/s), the pilot annulus
+    (to 9.1 mm, burnt stoichiometric products: Z = Z_st, c = 1, 2 m/s) and
+    the air coflow (0.9 m/s); the outlet at 1 atm. Z and c start from the
+    inlet profiles decaying in x. Upwind convection, cvar transported, no
+    species chemistry. `deepfgm`: a DeepFGM for the state lookups (the
+    table still gives cOc and the enthalpy). The example's step is 4e-6 s
+    at 96 x 48."""
+    import json
+    from .combustion.fgm import read_flare_table
+    from .solvers.fgm import FGMConfig, FGMSolver
+    table = read_flare_table(table_path, dtype=dtype, use_native=use_native,
+                             device=device)
+    with open(table_path + ".json") as f:
+        Z_st = json.load(f)["Z_st"]
+    Lx, Ly = 0.12, 0.06
+    mesh = StructuredMesh.box([Lx, Ly, Ly / ny], [nx, ny, 1],
+                              device=table.device)
+    yb = (np.arange(ny) + 0.5) * mesh.dy
+    r_jet, r_pilot = 0.0036, 0.0091
+    pilot = (yb >= r_jet) & (yb < r_pilot)
+    u_in = np.where(yb < r_jet, 12.0, np.where(yb < r_pilot, 2.0, 0.9))
+    c_in = np.where(pilot, 1.0, 0.0)
+    Zp_in = np.where(pilot, Z_st, np.where(yb < r_jet, 1.0, 0.0))
+    prof = lambda a: torch.as_tensor(a.reshape(1, ny, 1), dtype=dtype,
+                                     device=mesh.device)
+    zg, e = zero_gradient(), (empty(), empty())
+    bU = ((fixed_value(prof(u_in)), zg), (zg, zg), e)
+    bU0 = ((fixed_value(0.0), zg), (zg, zg), e)
+    bp = ((zg, fixed_value(101325.0)), (zg, zg), e)
+    bZ = ((fixed_value(prof(Zp_in)), zg), (zg, zg), e)
+    bc = ((fixed_value(prof(c_in)), zg), (zg, zg), e)
+    bs = ((zg, zg), (zg, zg), e)
+    solver = FGMSolver(
+        mesh=mesh, thermo=None, transport=None, combustion=None,
+        bcs_U=(bU, bU0, bU0), bcs_p=bp, bcs_h=bs, bcs_Y=bc, bcs_rho=bs,
+        bcs_Z=bZ, table=table, deepfgm=deepfgm,
+        config=FGMConfig(solve_cvar=True, div_scheme="upwind",
+                         chemistry=False))
+    X, _, _ = mesh.cell_centers(dtype)
+    Z0 = prof(Zp_in).expand(mesh.shape) * torch.exp(-X / (0.25 * Lx))
+    c0 = prof(c_in).expand(mesh.shape) * torch.exp(-X / (0.5 * Lx))
+    U0 = torch.stack([prof(u_in).expand(mesh.shape), torch.zeros_like(X),
+                      torch.zeros_like(X)])
+    p0 = torch.full(mesh.shape, 101325.0, dtype=dtype, device=mesh.device)
+    return solver, solver.fgm_initial_state(p0, Z0, c0, U0)

@@ -8,9 +8,10 @@ batch drains. Two things change in the translation:
   linear map over the n basis vectors. Here `torch.func.vmap` maps
   `torch.func.jvp` over the same basis vectors: n forward-mode products in one
   batched pass, each giving one column of every lane's Jacobian.
-* The loop: JAX's `lax.while_loop` tests "any lane still running" on the
-  device every trip. Here the loop is Python and reads that flag back to the
-  host only every `CHECK_EVERY` trips. The extra trips this allows are exact
+* The loop: JAX's `lax.while_loop` (and the vmapped single-cell loop)
+  tests "any lane still running" on the device every trip. Here the loop
+  is Python and reads that flag back to the host only every `CHECK_EVERY`
+  trips. The extra trips this allows are exact
   no-ops, because a finished lane's state, step and controller memory are
   only ever updated where the lane is active; and the trip count never
   passes `max_steps`, so the result is the JAX result.
@@ -203,42 +204,84 @@ def rosenbrock_integrate_batched(rhs_b: Callable, y0, t_end,
     return (y, dt, n_run) if return_nstep else (y, dt)
 
 
-def rosenbrock_integrate(rhs: Callable, y0, t_end,
-                         opts: RosenbrockOptions = RosenbrockOptions()):
-    """Integrate dy/dt = rhs(y) from 0 to t_end for ONE cell (the 0D reactor):
-    ode23s with the plain integral controller of the JAX single-cell
-    integrator. y0: (n,); t_end: float."""
-    dtype = y0.dtype
-    n = y0.shape[-1]
-    eye = torch.eye(n, dtype=dtype, device=y0.device)
+def rosenbrock_integrate(rhs_b: Callable, y0, t_end,
+                         opts: RosenbrockOptions = RosenbrockOptions(),
+                         dt_start=None, return_dt: bool = False,
+                         return_nstep: bool = False):
+    """The JAX single-cell integrator mapped over a lane batch: what
+    `jax.vmap(rosenbrock_integrate)` computes, lane for lane.
+
+    ode23s with the plain integral controller: factor = clip(safety
+    enorm^(-1/3), shrink, grow), `shrink` after a bad solve, no explicit
+    tier and no PI memory; the next step is set whether or not the step
+    was accepted. A lane runs while t < t_end (1 - 1e-12) and it has taken
+    fewer than `max_steps` trips, both in the state's dtype; a frozen lane
+    keeps y, t, dt and its trip count. The W inverse of every lane is one
+    `gj_inverse` launch a trip on the lanes-last layout.
+
+    rhs_b: batched RHS (L, n) -> (L, n). y0: (L, n); t_end: (L,);
+    dt_start: optional (L,) warm-start step (clipped below at dt_min),
+    else min(dt_init, t_end). Returns y (L, n); with return_dt also the
+    controller's next step (L,); with return_nstep also each lane's trip
+    count (L,) int64 (the largest is the trips the JAX loop runs)."""
+    dtype, dev = y0.dtype, y0.device
+    L, n = y0.shape
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    t_end = torch.as_tensor(t_end, dtype=dtype, device=dev).expand(L)
     t_stop = t_end * (1.0 - 1e-12)
-    y, t, dt = y0, 0.0, min(opts.dt_init, t_end)
-    for _ in range(opts.max_steps):
-        if not t < t_stop:
-            break
-        dt = min(dt, t_end - t)
-        f0, J_cols = torch.func.vmap(
-            lambda e: torch.func.jvp(rhs, (y,), (e,)), out_dims=(None, 0))(eye)
-        jac = J_cols.T
-        W = eye - (dt * _ROS_D) * jac
-        W_inv = gj_inverse(W[:, :, None].contiguous())[:, :, 0]
-        k1 = W_inv @ f0
-        f0n = torch.sqrt((f0 * f0).mean())
-        solve_res = torch.sqrt(((W @ k1 - f0) ** 2).mean()) / (f0n + 1e-300)
-        f1 = rhs(y + 0.5 * dt * k1)
-        k2 = W_inv @ (f1 - k1) + k1
-        y_new = y + dt * k2
-        f2 = rhs(y_new)
-        k3 = W_inv @ (f2 - _ROS_E32 * (k2 - f1) - 2.0 * (k1 - f0))
-        err = (dt / 6.0) * (k1 - 2.0 * k2 + k3)
+    y = y0
+    t = torch.zeros(L, dtype=dtype, device=dev)
+    if dt_start is None:
+        dt = torch.minimum(torch.full((L,), opts.dt_init, dtype=dtype,
+                                      device=dev), t_end)
+    else:
+        dt = torch.clamp(torch.as_tensor(dt_start, dtype=dtype, device=dev),
+                         min=opts.dt_min).expand(L)
+    nstep = torch.zeros(L, dtype=torch.int64, device=dev)
+    dt_min = torch.tensor(opts.dt_min, dtype=dtype, device=dev)
+
+    def body(y, t, dt, nstep):
+        act = (t < t_stop) & (nstep < opts.max_steps)
+        dt_c = torch.minimum(dt, t_end - t)
+        f0, jac = _jac_and_f(rhs_b, y)
+        W = eye[None] - (dt_c * _ROS_D)[:, None, None] * jac
+        W_inv = _inverse_batched(W)                              # (n, n, L)
+        solve = lambda b: torch.einsum("nml,lm->ln", W_inv, b)
+        k1 = solve(f0)
+        f0n = torch.sqrt((f0 * f0).mean(1))
+        solve_res = torch.sqrt(((torch.einsum("lnm,lm->ln", W, k1) - f0)
+                                ** 2).mean(1)) / (f0n + 1e-300)
+        f1 = rhs_b(y + (0.5 * dt_c)[:, None] * k1)
+        k2 = solve(f1 - k1) + k1
+        y_new = y + dt_c[:, None] * k2
+        f2 = rhs_b(y_new)
+        k3 = solve(f2 - _ROS_E32 * (k2 - f1) - 2.0 * (k1 - f0))
+        err = (dt_c / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
         scale = opts.atol + opts.rtol * torch.maximum(y.abs(), y_new.abs())
-        enorm = max(float(torch.sqrt(((err / scale) ** 2).mean())), 1e-30)
-        solve_ok = float(solve_res) <= _SOLVE_RES_MAX
-        accept = (enorm <= 1.0 and bool(torch.isfinite(y_new).all())
-                  and solve_ok)
-        factor = min(max(opts.safety * enorm ** (-1.0 / 3.0), opts.shrink),
-                     opts.grow) if solve_ok else opts.shrink
-        if accept:
-            y, t = y_new, t + dt
-        dt = max(dt * factor, opts.dt_min)
-    return y
+        enorm = torch.clamp(torch.sqrt(((err / scale) ** 2).mean(1)),
+                            min=1e-30)
+        solve_ok = solve_res <= _SOLVE_RES_MAX
+        accept = (enorm <= 1.0) & torch.isfinite(y_new).all(1) & solve_ok
+        factor = torch.clamp(opts.safety * enorm ** (-1.0 / 3.0),
+                             opts.shrink, opts.grow)
+        factor = torch.where(solve_ok, factor,
+                             torch.full_like(factor, opts.shrink))
+        dt_next = torch.maximum(dt_c * factor, dt_min)
+        take = act & accept
+        y = torch.where(take[:, None], y_new, y)
+        t = torch.where(take, t + dt_c, t)
+        return (y, t, torch.where(act, dt_next, dt),
+                torch.where(act, nstep + 1, nstep))
+
+    trips = 0
+    while trips < opts.max_steps and bool(((t < t_stop)
+                                           & (nstep < opts.max_steps)).any()):
+        for _ in range(min(CHECK_EVERY, opts.max_steps - trips)):
+            y, t, dt, nstep = body(y, t, dt, nstep)
+            trips += 1
+    out = (y,)
+    if return_dt:
+        out += (dt,)
+    if return_nstep:
+        out += (nstep,)
+    return out if len(out) > 1 else y

@@ -84,12 +84,13 @@ def ignite(thermo: ThermoData, kin: KineticsData, T0, p0, Y0, t_end,
                                             thermo.rho(p0, T0, Y0[None]))
     else:
         raise ValueError(const)
-    rhs = lambda y: rhs_b(y[None])[0]
-    dt_out = float(t_end) / n_out
+    # the output step in the state's dtype, as JAX's asarray(t_end / n_out)
+    dt_out = torch.tensor([float(t_end) / n_out], dtype=dtype, device=device)
+    s = s[None]
     traj = []
     for _ in range(n_out):
-        s = rosenbrock_integrate(rhs, s, dt_out, opts)
-        traj.append(s)
+        s = rosenbrock_integrate(rhs_b, s, dt_out, opts)
+        traj.append(s[0])
     traj = torch.stack(traj)
     times = torch.arange(1, n_out + 1, dtype=dtype, device=device) * dt_out
     return times, traj[:, 0], traj[:, 1:]

@@ -1,5 +1,5 @@
-"""Carry a mechanism, a solver state or DF-ODENet parameters into the port
-from plain numpy data.
+"""Carry a mechanism, a solver state, DF-ODENet parameters, a flamelet table
+or DeePFGM parameters into the port from plain numpy data.
 
 The functions take numpy arrays (for example the fields of the JAX
 package's `Mechanism` or `LowMachState`, or its DF-ODENet parameters, each
@@ -12,13 +12,15 @@ import numpy as np
 import torch
 
 from .chemistry.dnn import DFODENet
+from .combustion.fgm import DeepFGM, FlameletTable
 from .chemistry.mechanism import MECHANISM_ARRAYS, Mechanism
 from .device import resolve_device
 from .solvers.low_mach import LowMachState
 from .solvers.low_mach_fl import LowMachFLState
 
 __all__ = ["mechanism_from_numpy", "state_from_numpy", "fl_state_from_numpy",
-           "dfodenet_from_numpy"]
+           "dfodenet_from_numpy", "flamelet_table_from_numpy",
+           "deep_fgm_from_numpy"]
 
 
 def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
@@ -79,3 +81,31 @@ def dfodenet_from_numpy(nets, x_mean, x_std, y_mean, y_std, delta_t: float,
                     x_mean=f(x_mean), x_std=f(x_std), y_mean=f(y_mean),
                     y_std=f(y_std), delta_t=delta_t, frozen_T=frozen_T,
                     compute_dtype=compute_dtype)
+
+
+def flamelet_table_from_numpy(d: dict, dtype=torch.float64,
+                              device=None) -> FlameletTable:
+    """FlameletTable from a dict of the JAX table's fields: axes (six
+    arrays), tables ({name: 6-D array}), scaled_pv, H_fuel, H_ox,
+    omega_species, species and laminar ({key: (NH, NZL) array})."""
+    device = resolve_device(device)
+    return FlameletTable(
+        axes=tuple(np.array(a, dtype=np.float64) for a in d["axes"]),
+        tables={k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+                for k, v in d["tables"].items()},
+        scaled_pv=bool(d["scaled_pv"]), H_fuel=float(d["H_fuel"]),
+        H_ox=float(d["H_ox"]), omega_species=tuple(d["omega_species"]),
+        species=tuple(d["species"]),
+        laminar={k: np.array(v) for k, v in d["laminar"].items()})
+
+
+def deep_fgm_from_numpy(params, x_mean, x_std, y_mean, y_std,
+                        dtype=torch.float64, device=None) -> DeepFGM:
+    """DeepFGM from numpy parameters: params = [(W (in, out), b (out,)),
+    ...] and the normalisation vectors of its inputs (4,) and outputs
+    (8,)."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return DeepFGM(params=[(f(W), f(b)) for W, b in params],
+                   x_mean=f(x_mean), x_std=f(x_std), y_mean=f(y_mean),
+                   y_std=f(y_std))

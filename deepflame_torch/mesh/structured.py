@@ -25,7 +25,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["StructuredMesh", "BC", "FieldBCs", "pad_field", "extend_padded",
+__all__ = ["StructuredMesh", "BC", "FieldBCs", "pad_field", "pad_n",
+           "extend_padded",
            "stack_bcs", "bcs_batch_shape", "fixed_value", "zero_gradient",
            "cyclic", "fixed_gradient", "symmetry", "empty"]
 
@@ -237,6 +238,25 @@ def pad_field(f, bcs: FieldBCs, mesh: StructuredMesh,
             g_lo, g_hi = a_lo * own_lo + b_lo, a_hi * own_hi + b_hi
         out = torch.cat([g_lo, out, g_hi], dim=d)
     return out
+
+
+def pad_n(f, bcs: FieldBCs, mesh: StructuredMesh, n_ghost: int):
+    """Pad with n_ghost layers per side on every axis: the first layer by
+    the affine BC relation, outer layers by exact wrap (cyclic) or
+    replication (physical boundaries), for wide stencils (WENO5 needs 3)."""
+    P = pad_field(f, bcs, mesh)
+    for axis in range(3):
+        cyc = bcs[axis][0].kind == "cyclic"
+        for layer in range(1, n_ghost):
+            n = P.shape[axis - 3]
+            if cyc:
+                # padded = [g..., c0..c_{m-1}, ...g]: the next wrap values
+                lo = _slab(P, axis, n - 2 * layer - 1, n - 2 * layer)
+                hi = _slab(P, axis, 2 * layer, 2 * layer + 1)
+            else:
+                lo, hi = _slab(P, axis, 0, 1), _slab(P, axis, n - 1, n)
+            P = torch.cat([lo, P, hi], dim=axis - 3)
+    return P
 
 
 def extend_padded(P, axis: int, bcs: FieldBCs):

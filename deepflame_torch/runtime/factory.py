@@ -5,7 +5,7 @@ createFields.H: runtime selection of thermo, combustion model and
 turbulence model from the case dictionaries), for what the port has:
 laminar, EDC, PaSR, noCombustion and DNN combustion; laminar flow and the
 Smagorinsky, WALE, Sigma and dynamic Smagorinsky LES models; the low-Mach
-solver. Every other selection raises NotImplementedError naming the ROADMAP
+and the density-based solvers. Every other selection raises NotImplementedError naming the ROADMAP
 item that ports it.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ..chemistry import (load_mechanism, make_kinetics, make_thermo,
 from ..chemistry.dnn import load_npz_checkpoint
 from ..chemistry.integrator import RosenbrockOptions
 from ..combustion import DNNChemistry, EDC, Laminar, NoCombustion, PaSR
+from ..solvers.high_speed import HighSpeedConfig, HighSpeedSolver
 from ..solvers.low_mach import LowMachConfig, LowMachSolver
 from ..turbulence import dynamic_smagorinsky, sigma_model, smagorinsky, wale
 from .config import CaseConfig
@@ -103,5 +104,19 @@ def build_low_mach_solver(case: CaseConfig, mesh, bcs_U, bcs_p, bcs_h,
                          bcs_rho=bcs_rho, config=cfg, turbulence=turb), mech
 
 
-def build_high_speed_solver(*args, **kwargs):
-    raise NotImplementedError("density-based solver: ROADMAP A10")
+def build_high_speed_solver(case: CaseConfig, mesh, bcs_rho, bcs_U, bcs_p,
+                            bcs_Y):
+    """(HighSpeedSolver, mechanism) for the case, on the mesh's device:
+    the flux scheme, RK order and limiter of `case.schemes`, split ODE
+    chemistry when `case.chemistry.chemistry` is set."""
+    mech, th, _, kin = build_chemistry(case, device=mesh.device)
+    cfg = HighSpeedConfig(
+        flux=case.schemes.flux_scheme, rk_order=case.schemes.rk_order,
+        limiter=case.schemes.limiter,
+        chemistry="ode" if case.chemistry.chemistry else "none",
+        ode_opts=RosenbrockOptions(rtol=case.chemistry.ode_rtol,
+                                   atol=case.chemistry.ode_atol,
+                                   max_steps=20000, grow=10.0))
+    return HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
+                           bcs_rho=bcs_rho, bcs_U=bcs_U, bcs_p=bcs_p,
+                           bcs_Y=bcs_Y, config=cfg), mech

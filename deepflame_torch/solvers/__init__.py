@@ -1,5 +1,8 @@
+from .fgm import FGMConfig, FGMSolver, FGMState
+from .high_speed import HighSpeedConfig, HighSpeedSolver, HighSpeedState
 from .low_mach import LowMachConfig, LowMachSolver, LowMachState
 from .low_mach_fl import LowMachFLState, LowMachSolverFL
 
 __all__ = ["LowMachConfig", "LowMachSolver", "LowMachState", "LowMachFLState",
-           "LowMachSolverFL"]
+           "LowMachSolverFL", "HighSpeedConfig", "HighSpeedSolver",
+           "HighSpeedState", "FGMConfig", "FGMSolver", "FGMState"]

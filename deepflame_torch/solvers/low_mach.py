@@ -129,8 +129,13 @@ class LowMachSolver:
 
     def __post_init__(self):
         dev = self.mesh.device
-        for name, t in (("thermo", self.thermo.W), ("transport", self.transport.W),
-                        ("kinetics", self.combustion.kinetics.W)):
+        kinetics = getattr(self.combustion, "kinetics", None)
+        for name, obj in (("thermo", self.thermo),
+                          ("transport", self.transport),
+                          ("kinetics", kinetics)):
+            if obj is None:         # the FGM solver reads a table instead
+                continue
+            t = obj.W
             if t.device != dev and not (t.device.type == dev.type == "cuda"):
                 raise ValueError(f"{name} tables are on {t.device}, the mesh "
                                  f"on {dev}")

@@ -29,6 +29,13 @@ def test_port_sources_import_no_jax():
     assert any(f.endswith("low_mach_fl.py") for f in files)
     bad = [f for f in files if _IMPORT.search(open(f).read())]
     assert not bad, bad
+    # the native sources the port builds are its own copies, naming neither
+    csrc = os.path.join(ROOT, "deepflame_torch", "csrc")
+    cpp = [os.path.join(csrc, n) for n in os.listdir(csrc)
+           if n.endswith(".cpp")]
+    assert len(cpp) == 1
+    assert not [f for f in cpp
+                if re.search(r"jax|deepflame_tpu", open(f).read())]
 
 
 def test_port_modules_load_no_jax():
@@ -52,6 +59,9 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.runtime.function_objects\n"
         "import deepflame_torch.utils.flame_speed\n"
         "import deepflame_torch.combustion.edc, deepflame_torch.combustion.pasr\n"
+        "import deepflame_torch.solvers.high_speed, deepflame_torch.solvers.fgm\n"
+        "import deepflame_torch.ops.riemann, deepflame_torch.utils.cj\n"
+        "import deepflame_torch.combustion.fgm, deepflame_torch.native\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('deepflame_tpu')]\n"
@@ -146,3 +156,30 @@ def test_cpu_structured_jet_counts_no_launch():
     state, diag = solver.step(state, 5e-7)
     assert all(v == 0 for v in K.launches.values())
     assert torch.isfinite(state.T).all() and int(diag["iters_p"]) > 0
+
+
+def test_cpu_high_speed_and_fgm_steps_count_no_launch():
+    """The detonation's chemistry drain (gj_inverse) and the FGM jet's
+    scalar and pressure solves (stencil, Helmholtz) on the CPU take the
+    plain versions: no kernel launch counted; without a card their case
+    functions need device='cpu'."""
+    from deepflame_torch.cases import (detonation_2d_h2, detonation_dt,
+                                       sandia_d_fgm_2d)
+    from deepflame_torch.ops import kernels as K
+    table = os.path.join(ROOT, "data", "flare_H2_Li_4D.tbl")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            detonation_2d_h2(MECH, nx=8, ny=2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sandia_d_fgm_2d(table, nx=8, ny=4)
+    solver, state = detonation_2d_h2(MECH, nx=12, ny=2, dtype=torch.float64,
+                                     device="cpu", igniters=((0.0, 0.05),))
+    fgm, fstate = sandia_d_fgm_2d(table, nx=8, ny=8, dtype=torch.float64,
+                                  device="cpu")
+    K.reset_launches()
+    state, diag = solver.step(state, detonation_dt(solver))
+    fstate, fdiag = fgm.step(fstate, 1e-5)
+    assert all(v == 0 for v in K.launches.values())
+    assert diag["chem_lanes"] > 0 and int(diag["chem_trips"]) > 0
+    assert int(fdiag["iters_Z"]) > 0 and int(fdiag["iters_p"]) > 0
+    assert torch.isfinite(state.T).all() and torch.isfinite(fstate.T).all()

@@ -18,6 +18,7 @@ import torch
 import deepflame_tpu.chemistry as jc_chem
 from deepflame_tpu.chemistry import dnn as jdnn
 from deepflame_tpu.mesh import StructuredMesh, cyclic, empty
+from deepflame_tpu.mesh import zero_gradient as jzg
 from deepflame_tpu.runtime import checkpoint as jckpt
 from deepflame_tpu.runtime import config as jconfig
 from deepflame_tpu.runtime import driver as jdriver
@@ -215,7 +216,8 @@ def test_port_checkpoint_round_trip(tmp_path):
 def test_factory_selection():
     """EDC and PaSR are built from CombustionProperties as the JAX factory
     builds them; unported models raise NotImplementedError naming their
-    ROADMAP item; the LES models the port has are built."""
+    ROADMAP item; the LES models the port has are built; the density-based
+    solver's config is the JAX factory's for two case dictionaries."""
     C = tconfig
     mech = tc_chem.load_mechanism(MECH, device="cpu")
     th, kin = tc_chem.make_thermo(mech), tc_chem.make_kinetics(mech)
@@ -241,8 +243,30 @@ def test_factory_selection():
     with pytest.raises(NotImplementedError, match="A12"):
         tfactory.build_turbulence(C.CaseConfig(
             turbulence=C.TurbulenceProperties(simulation_type="RAS")))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tfactory.build_high_speed_solver()
+    # the density-based solver: the JAX factory's config, field by field
+    b = ((tmesh.zero_gradient(), tmesh.zero_gradient()),) * 3
+    bj = ((jzg(), jzg()),) * 3
+    for chem, schemes in (
+            (dict(), dict()),
+            (dict(chemistry=False, ode_rtol=1e-5, ode_atol=1e-9),
+             dict(flux_scheme="AUSMDV", rk_order=3, limiter="WENO5"))):
+        kw = dict(chemistry=C.ChemistryProperties(mechanism_file=MECH, **chem),
+                  schemes=C.Schemes(**schemes), dtype="float64")
+        got, mech_t = tfactory.build_high_speed_solver(
+            C.CaseConfig(**kw), tmesh.StructuredMesh.box(
+                [1.0, 1.0, 1.0], [4, 4, 4], device="cpu"), b, (b, b, b), b, b)
+        ref, _ = jfactory.build_high_speed_solver(
+            jconfig.CaseConfig(
+                chemistry=jconfig.ChemistryProperties(mechanism_file=MECH,
+                                                      **chem),
+                schemes=jconfig.Schemes(**schemes), dtype="float64"),
+            StructuredMesh.box([1.0, 1.0, 1.0], [4, 4, 4]), bj, (bj,) * 3,
+            bj, bj)
+        assert mech_t.n_species == 9 and got.thermo.W.dtype == torch.float64
+        for f in dataclasses.fields(ref.config):
+            a, r = getattr(got.config, f.name), getattr(ref.config, f.name)
+            assert (tuple(a) == tuple(r)) if f.name == "ode_opts" else a == r, \
+                f.name
     assert tfactory.build_turbulence(C.CaseConfig()) is None
 
 
@@ -513,3 +537,23 @@ def test_jax_pasr_checkpoint_restores_in_the_port(pasr_jet):
     for a, b in zip(back.phi + back.cscalars, sj.phi + sj.cscalars):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert back.turb == ()
+
+
+@pytest.mark.parametrize("table", ["thermo", "transport", "kinetics"])
+def test_low_mach_post_init_checks_the_tables_present(table):
+    """LowMachSolver.__post_init__ holds each table that is present to the
+    mesh's device and skips one that is None (the FGM solver has none).
+    The structured steps themselves are held to JAX's by
+    test_torch_low_mach.py (Laminar) and test_run_case_pasr_jet_matches_jax
+    (PaSR)."""
+    import types
+    from deepflame_torch.cases import jet_flame_3d_les
+    solver, _ = jet_flame_3d_les(MECH, n=2, dtype=torch.float64,
+                                 device="cpu")
+    field = "combustion" if table == "kinetics" else table
+    moved = types.SimpleNamespace(W=torch.empty(1, device="meta"))
+    if table == "kinetics":
+        moved = types.SimpleNamespace(kinetics=moved)
+    with pytest.raises(ValueError, match=f"{table} tables are on meta"):
+        dataclasses.replace(solver, **{field: moved})
+    assert getattr(dataclasses.replace(solver, **{field: None}), field) is None
