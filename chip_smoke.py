@@ -17,9 +17,10 @@ toolkit (nvcc). In order:
    Gauss-Jordan inverse at n = 10 and 2^17 lanes in both types, at the lane
    counts the chemistry launches it with, and at n = 54 (gri30's size) in
    both types, beside the device time of an empty kernel's launch; the
-   stencil at the structured jet's (9, 128, 64, 64) with the boundary
-   coefficients zeroed, and the Helmholtz operator on the jet's mesh and on
-   every level of its multigrid hierarchy;
+   stencil at the structured jet's (9, 128, 64, 64) and the aachenBomb's
+   (1, 3 and 9 lanes of 41 x 100 x 41) with the boundary coefficients
+   zeroed, and the Helmholtz operator on the jet's mesh, on every level of
+   its multigrid hierarchy and on the chamber's mesh;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case, the face-list jet, the
@@ -91,7 +92,27 @@ toolkit (nvcc). In order:
    the jet at 1024 x 512 in float32, 2 warm-up and 5 timed steps (the
    stencil and Helmholtz kernels must launch), the table lookups' share of
    one more step;
-12. prints its total seconds, the card line, one JSON line of kernel
+12. spray and mist, the spray solvers. Gates first, card against the CPU
+   path in float64, in worker processes side by side: the aachenBomb
+   chamber at 11 x 20 x 11, 2 steps, the CPU replaying the card's draws
+   (deepflame_torch.lagrangian.cloud.draw), gas fields and parcel
+   position, velocity, diameter and temperature within 1e-8; the RAS
+   channel of tests/test_wall_functions.py with KOmegaSST and wall
+   functions, 2 steps, 1e-8; the water-mist tube at 64 cells with 400
+   parcels, 2 steps, 1e-8. Then the reference's threeD_aachenBomb at 41 x
+   100 x 41 in float32 (deepflame_torch.cases.aachen_bomb_3d: kEpsilon,
+   Laminar chemistry, water into the test mechanism's air), 2 warm-up and
+   5 timed steps (the stencil and Helmholtz kernels must launch), the
+   cloud's, the RAS model's and the chemistry's shares of one more step,
+   one evolve with all 32,768 slots active and one chemistry solve with
+   every cell in the drain's bins (labelled measurements), the kernels at
+   the chamber's shapes; and oneD_detH2WaterMist at 700 cells with 80,000
+   parcels x 275 in float32 (deepflame_torch.cases.
+   watermist_detonation_1d, the mist released in the first step), 2
+   warm-up and 5 timed steps (gj_inverse must launch), the cloud's and the
+   chemistry split's shares of one more step, gj_inverse at the split's
+   lanes;
+13. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -281,6 +302,13 @@ def phase_kernels(torch, K, jet_conn) -> dict:
         row = _stencil_row(torch, K, g, (lanes, FGM_NX, FGM_NY, 1), True)
         print("stencil7_apply at the FGM jet's shape: " + json.dumps(row))
         out["stencil7_apply"]["fgm_shapes"].append(row)
+    # the aachenBomb chamber: k or eps, momentum, the 9 species; walls
+    out["stencil7_apply"]["spray_shapes"] = []
+    for lanes in (1, 3, 9):
+        row = _stencil_row(torch, K, g, (lanes, AACHEN_NXZ, AACHEN_NY,
+                                         AACHEN_NXZ), True)
+        print("stencil7_apply at the aachenBomb's shape: " + json.dumps(row))
+        out["stencil7_apply"]["spray_shapes"].append(row)
 
     # --- Helmholtz: the pressure operator at 96^3, float32, main-path
     # spacing; then the structured jet's 128 x 64 x 64 and each level of its
@@ -294,6 +322,11 @@ def phase_kernels(torch, K, jet_conn) -> dict:
         torch, g, (FGM_NX, FGM_NY, 1), (h, h, h)))
     print("helmholtz7_apply at the FGM jet's shape: " + json.dumps(row))
     out["helmholtz7_apply"]["fgm_shape"] = row
+    row = _helmholtz_row(torch, K, _helmholtz_sets(
+        torch, g, (AACHEN_NXZ, AACHEN_NY, AACHEN_NXZ),
+        (0.02 / AACHEN_NXZ, 0.1 / AACHEN_NY, 0.02 / AACHEN_NXZ)))
+    print("helmholtz7_apply at the aachenBomb's shape: " + json.dumps(row))
+    out["helmholtz7_apply"]["spray_shape"] = row
 
     out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
@@ -477,7 +510,9 @@ def _gj_figures(torch, K, g) -> dict:
     with, a bin and the cold slab of the jet (4,096 and 32,768 lanes) and of
     the TGV (6,912 and 55,296), and the detonation's split: its igniters'
     hot cells (40 lanes, part of one block) and the whole 2000 x 100
-    channel (200,000), as `path_shapes`; n = 54 (gri30's size) at
+    channel (200,000), one drain bin of the aachenBomb chamber
+    (AACHEN_BIN_LANES) and the mist's split (MIST_SPLIT_LANES), as
+    `path_shapes`; n = 54 (gri30's size) at
     4,096 lanes in both types, as `n54`. At 2^17 lanes the six input sets
     exceed the 50 MB L2 cache together, so each call reads cold inputs; at
     the path shapes they lie in it together, as the integrator's freshly
@@ -494,7 +529,8 @@ def _gj_figures(torch, K, g) -> dict:
           + json.dumps(_gj_row(torch, K, g, 10, 1 << 17, torch.float64)))
     entry["empty_launch_ms"] = floor
     entry["path_shapes"] = []
-    for L in (4096, 6912, 32768, 55296, 40, HS_NX * HS_NY):
+    for L in (4096, 6912, 32768, 55296, 40, HS_NX * HS_NY, AACHEN_BIN_LANES,
+              MIST_SPLIT_LANES):
         row = _gj_row(torch, K, g, 10, L, torch.float32)
         print(f"gj_inverse n=10 L={L} f32: " + json.dumps(row))
         entry["path_shapes"].append(row)
@@ -1028,23 +1064,33 @@ def _check_dnn_rates(torch, solver, state) -> None:
 def _timed_inside(torch, owner, attr, run):
     """run() with owner.attr timed inside it, synchronised before and after
     each call: (seconds of run, [seconds of each call])."""
-    inner, spent = getattr(owner, attr), []
+    total, spent = _timed_many(torch, [(owner, attr)], run)
+    return total, spent[attr]
 
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        r = inner(*a, **k)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t1)
-        return r
-    setattr(owner, attr, timed)
+
+def _timed_many(torch, targets, run):
+    """run() with each (owner, attr) of `targets` timed inside it, each
+    call synchronised before and after: (seconds of run, {attr: [seconds
+    of each call]})."""
+    spent = {a: [] for _, a in targets}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in targets]
+    for owner, attr, inner in saved:
+        def timed(*a, _inner=inner, _attr=attr, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = _inner(*a, **k)
+            torch.cuda.synchronize()
+            spent[_attr].append(time.perf_counter() - t1)
+            return r
+        setattr(owner, attr, timed)
     try:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         return time.perf_counter() - t0, spent
     finally:
-        setattr(owner, attr, inner)
+        for owner, attr, inner in saved:
+            setattr(owner, attr, inner)
 
 
 def _breakdown_step(torch, solver, state, path: str) -> None:
@@ -1653,6 +1699,11 @@ HS_NX, HS_NY, HS_STEPS = 2000, 100, 5      # the reference's 2D channel
 FGM_NX, FGM_NY, FGM_STEPS = 1024, 512, 5   # the structured jet's cell count
 FGM_DT = 4e-6 * 96 / FGM_NX                # the example's Courant number
 FGM_LX = 0.12           # sandia_d_fgm_2d's slab length: spacing FGM_LX / nx
+AACHEN_NXZ, AACHEN_NY = 41, 100            # the reference's 3D chamber
+# lanes of one drain bin of the chamber (its Laminar model's 32 bins) and
+# the most cells above 500 K in the mist's timed steps (2-3 a step)
+AACHEN_BIN_LANES = -(-AACHEN_NXZ * AACHEN_NY * AACHEN_NXZ // 32)
+MIST_SPLIT_LANES = 3
 SOD_RUNS = (("HLLC", "vanLeer"), ("HLLCP", "vanLeer"), ("AUSMDV", "vanLeer"),
             ("Kurganov", "vanLeer"), ("Tadmor", "vanLeer"), ("HLLC", "WENO5"))
 HS_FIELDS = ("rho", "rhoU", "rhoE", "rhoY", "T")
@@ -2032,6 +2083,359 @@ def phase_fgm(torch, K):
     return counts, ms
 
 
+# ------------------------------------------- RAS and the Lagrangian spray
+
+MIST_N, MIST_PARCELS, MIST_NP = 700, 80_000, 275.0   # its manualInjection
+SPRAY_STEPS = 5
+SPRAY_FIELDS = ("rho", "U", "p", "ha", "Y", "T", "turb")
+PARCEL_FIELDS = ("pos", "vel", "d", "T")
+MIST_FIELDS = ("rho", "rhoU", "rhoE", "rhoY", "T")
+
+
+def _recording_draws(log: list):
+    """Route the cloud's draws through a recorder: each draw is kept (as
+    numpy) in `log`, in order."""
+    from deepflame_torch.lagrangian import cloud as C
+    orig = C.draw
+
+    def draw(generator, dist, shape, dtype, low=0.0, high=1.0):
+        out = orig(generator, dist, shape, dtype, low, high)
+        log.append((dist, out.cpu().numpy()))
+        return out
+    C.draw = draw
+
+
+def _replaying_draws(torch, log: list):
+    """Route the cloud's draws through a replay of `log` (what
+    _recording_draws kept), checking each draw's kind and shape."""
+    from deepflame_torch.lagrangian import cloud as C
+
+    def draw(generator, dist, shape, dtype, low=0.0, high=1.0):
+        want, arr = log.pop(0)
+        check(want == dist and arr.shape == tuple(shape),
+              f"replayed draw {want} {arr.shape} asked as {dist} {shape}")
+        return torch.as_tensor(arr, dtype=dtype, device=generator.device)
+    C.draw = draw
+
+
+def _spray_gate_case(dev: str, draws=None):
+    """The aachenBomb chamber at 11 x 20 x 11 in float64 after 2 steps on
+    `dev` (a worker). On the card the cloud's draws are recorded; on the
+    CPU `draws` (the card's) are replayed. Returns (gas fields, parcel
+    fields, the draws recorded, active parcels)."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import AACHEN_DT, aachen_bomb_3d
+    log = []
+    if draws is None:
+        _recording_draws(log)
+    else:
+        _replaying_draws(torch, list(draws))
+    solver, s = aachen_bomb_3d(MECH, n_xz=11, n_y=20, dtype=torch.float64,
+                               device=dev)
+    for _ in range(2):
+        s, diag = solver.step(s, AACHEN_DT)
+    return (_as_numpy(s.gas, SPRAY_FIELDS), _as_numpy(s.cloud, PARCEL_FIELDS),
+            log, int(diag["cloud_n_active"]))
+
+
+def _ras_gate_case(dev: str):
+    """tests/test_wall_functions.py's channel (air.yaml, 4 x 16 x 1, a wall
+    at y = 0) with KOmegaSST and WallFunctions in float64, 2 steps of 2e-5
+    s on `dev` (a worker): its fields as numpy."""
+    torch = _worker_torch()
+    import deepflame_torch.chemistry as tc
+    from deepflame_torch.combustion import NoCombustion
+    from deepflame_torch.mesh import (StructuredMesh, cyclic, empty,
+                                      fixed_value, zero_gradient)
+    from deepflame_torch.solvers import LowMachConfig, LowMachSolver
+    from deepflame_torch.turbulence import (KOmegaSST, WallFunctions,
+                                            wall_distance)
+    mech = tc.load_mechanism(AIR, device=dev)
+    th = tc.make_thermo(mech)
+    mesh = StructuredMesh.box([0.1, 0.02, 0.02], [4, 16, 1], device=dev)
+    e = (empty(), empty())
+    bU = ((cyclic(), cyclic()), (fixed_value(0.0), zero_gradient()), e)
+    bS = ((cyclic(), cyclic()), (zero_gradient(), zero_gradient()), e)
+    model = KOmegaSST(y=wall_distance(mesh, [(1, 0)]),
+                      wall_fns=WallFunctions.for_walls(mesh, [(1, 0)],
+                                                       dtype=torch.float64))
+    solver = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tc.make_transport(mech),
+        combustion=NoCombustion(th, tc.make_kinetics(mech)),
+        bcs_U=(bU, bU, bU), bcs_p=bS, bcs_h=bS, bcs_Y=bS, bcs_rho=bS,
+        config=LowMachConfig(chemistry=False), turbulence=model)
+    _, Yg, _ = mesh.cell_centers()
+    U = torch.stack([15.0 * torch.sqrt(Yg / 0.02), torch.zeros_like(Yg),
+                     torch.zeros_like(Yg)])
+    full = lambda v: torch.full(mesh.shape, v, dtype=torch.float64,
+                                device=dev)
+    s = solver.initial_state(full(101325.0), full(300.0),
+                             torch.ones((1,) + mesh.shape, device=dev), U,
+                             k0=0.1, eps0=1.0)
+    for _ in range(2):
+        s, _ = solver.step(s, 2e-5)
+    return _as_numpy(s, SPRAY_FIELDS)
+
+
+def _mist_gate_case(dev: str):
+    """The water-mist tube at 64 cells with 400 parcels in float64, the
+    mist released in the first step, 2 steps on `dev` (a worker): the
+    fields and parcels as numpy, and the chemistry lanes of the last step."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import detonation_dt, watermist_detonation_1d
+    solver, s = watermist_detonation_1d(MECH, n=64, n_parcels=400, soi=1e-9,
+                                        dtype=torch.float64, device=dev)
+    dt = detonation_dt(solver.gas_solver, a_bound=3500.0)
+    for _ in range(2):
+        s, diag = solver.step(s, dt)
+    return (_as_numpy(s.gas, MIST_FIELDS), _as_numpy(s.cloud, PARCEL_FIELDS),
+            int(diag["chem_lanes"]))
+
+
+def spray_gates(torch):
+    """The card-against-CPU gates of the spray and mist phases, side by side
+    in worker processes (all host-bound), before anything is timed: the
+    aachenBomb at 11 x 20 x 11 (the CPU replays the card's draws; gas
+    fields within 1e-8 of their largest value, parcel position, velocity,
+    diameter and temperature within 1e-8), the RAS channel (KOmegaSST with
+    wall functions, 1e-8) and the mist tube (1e-8)."""
+    t0 = time.perf_counter()
+    with _pool(5) as pool:
+        card = pool.submit(_spray_gate_case, "cuda")
+        ras = {d: pool.submit(_ras_gate_case, d) for d in ("cuda", "cpu")}
+        mist = {d: pool.submit(_mist_gate_case, d) for d in ("cuda", "cpu")}
+        g_card, p_card, draws, n_act = card.result()
+        cpu = pool.submit(_spray_gate_case, "cpu", draws)
+        _field_gate(torch, "spray RAS channel KOmegaSST + wall functions "
+                    "float64, 2 steps", ras["cuda"].result(),
+                    ras["cpu"].result(), SPRAY_FIELDS, 1e-8)
+        (mg_card, mp_card, lanes), (mg_cpu, mp_cpu, _) = (
+            mist["cuda"].result(), mist["cpu"].result())
+        _field_gate(torch, "mist 64 cells, 400 parcels, float64, 2 steps",
+                    mg_card, mg_cpu, MIST_FIELDS, 1e-8)
+        _field_gate(torch, "mist parcels", mp_card, mp_cpu, PARCEL_FIELDS,
+                    1e-8)
+        g_cpu, p_cpu, _, n_cpu = cpu.result()
+        _field_gate(torch, "spray aachenBomb 11 x 20 x 11 float64, 2 steps "
+                    f"({len(draws)} draws replayed on the CPU)", g_card,
+                    g_cpu, SPRAY_FIELDS, 1e-8)
+        _field_gate(torch, "spray parcels", p_card, p_cpu, PARCEL_FIELDS,
+                    1e-8)
+        check(n_act == n_cpu > 0, f"spray gate: {n_act} parcels on the card, "
+                                  f"{n_cpu} on the CPU")
+        check(lanes > 0, "mist gate: no chemistry lane above 500 K")
+    print(f"spray and mist gates: {time.perf_counter() - t0:.1f} s "
+          f"({n_act} parcels in the chamber, {lanes} chemistry lanes in "
+          "the tube)")
+
+
+def _timed_steps(torch, K, solver, state, dt, steps):
+    """`steps` timed steps (launch counts set to 0 just before, read just
+    after): (state, diag of the last step, counts, wall seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, diag = solver.step(state, dt)
+    torch.cuda.synchronize()
+    return state, diag, dict(K.launches), time.perf_counter() - t0
+
+
+def phase_spray(torch, K):
+    """The aachenBomb through SpraySolver at the reference's 41 x 100 x 41
+    in float32 (kEpsilon RAS, Laminar chemistry, water spray): 2 warm-up
+    and SPRAY_STEPS timed steps; the stencil and Helmholtz kernels must
+    launch. Then one step with the cloud's evolve, the RAS advance and the
+    chemistry timed inside it; one evolve with all 32,768 slots active and
+    one chemistry solve with every cell in the drain's bins (labelled
+    measurements, not the path; phase_kernels holds the kernels at the
+    chamber's shapes). Returns (launch counts of the timed steps,
+    ms/step)."""
+    from deepflame_torch.cases import AACHEN_DT, aachen_bomb_3d
+    from deepflame_torch.chemistry.reactor import solve_chemistry
+    from deepflame_torch.combustion import Laminar
+    from deepflame_torch.lagrangian.cloud import SprayCloud
+    from deepflame_torch.turbulence import KEpsilon
+    t0 = time.perf_counter()
+    solver, state = aachen_bomb_3d(MECH, n_xz=AACHEN_NXZ, n_y=AACHEN_NY,
+                                   dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    gas, cloud = solver.gas_solver, solver.cloud
+    n_cells = state.gas.T.numel()
+    print(f"spray path: aachenBomb {AACHEN_NXZ} x {AACHEN_NY} x {AACHEN_NXZ} "
+          f"float32, water into the test mechanism's air, kEpsilon, "
+          f"{gas.combustion.n_bins} chemistry bins, dt {AACHEN_DT:g} s, "
+          f"{cloud.max_parcels} parcel slots, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, diag = solver.step(state, AACHEN_DT)
+        torch.cuda.synchronize()
+        print(f"spray warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    T_before = state.gas.T.clone()
+    state, diag, counts, wall = _timed_steps(torch, K, solver, state,
+                                             AACHEN_DT, SPRAY_STEPS)
+    ms = wall / SPRAY_STEPS * 1e3
+    print(f"spray path counts over {SPRAY_STEPS} steps: {json.dumps(counts)}; "
+          f"per step " + json.dumps({k: v / SPRAY_STEPS
+                                     for k, v in counts.items()}))
+    print(f"spray path: {ms:.2f} ms/step, "
+          f"{n_cells / (wall / SPRAY_STEPS):.4e} cell-updates/s ({n_cells} "
+          f"cells), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    g, c = state.gas, state.cloud
+    act = c.active > 0
+    n_act = int(act.sum())
+    tip = float(c.pos[1][act].min()) if n_act else float("nan")
+    iv = solver.fuel_index
+    print(f"spray state: {n_act} active parcels, k_max "
+          f"{float(diag['k_max']):.6f}, T_min {float(g.T.min()):.3f} K, "
+          f"max Y_H2O {float(g.Y[iv].max()):.6e}, liquid tip at y = "
+          f"{tip * 1e3:.3f} mm (penetration {(0.0995 - tip) * 1e3:.3f} mm "
+          f"below the injector), liquid mass "
+          f"{float(diag['cloud_liquid_mass']):.6e} kg, injected "
+          f"{float(c.m_injected):.6e} kg")
+    print("spray solver iterations of the last step: " + json.dumps(
+        {k: int(v) for k, v in diag.items() if k.startswith("iters_")}))
+    check(counts["stencil7_apply"] > 0 and counts["helmholtz7_apply"] > 0,
+          f"spray: a kernel of the path was not launched: {counts}")
+    check(bool(torch.isfinite(g.T).all() and torch.isfinite(g.p).all()
+               and all(torch.isfinite(t).all() for t in g.turb)),
+          "spray: non-finite gas state")
+    check(float((g.T - T_before).abs().max()) > 0.0, "spray: T did not change")
+    check(n_act > 0 and float(g.Y[iv].max()) > 0.0,
+          "spray: no parcels, or no vapour in the gas")
+    check(float(g.turb[0].min()) > 0.0 and float(g.turb[1].min()) > 0.0,
+          "spray: k or epsilon not positive")
+    check(float((g.Y.sum(0) - 1.0).abs().max()) < 1e-5,
+          "spray: mass fractions do not sum to 1")
+
+    total, spent = _timed_many(
+        torch, [(SprayCloud, "evolve"), (KEpsilon, "advance"),
+                (Laminar, "correct")],
+        lambda: solver.step(state, AACHEN_DT))
+    spent = {k: sum(v) for k, v in spent.items()}
+    print(f"spray breakdown step: {total * 1e3:.2f} ms; cloud evolve "
+          f"{spent['evolve'] * 1e3:.2f} ms ({spent['evolve'] / total:.3f}), "
+          f"RAS advance {spent['advance'] * 1e3:.2f} ms "
+          f"({spent['advance'] / total:.3f}), chemistry "
+          f"{spent['correct'] * 1e3:.2f} ms ({spent['correct'] / total:.3f})")
+
+    # a labelled measurement: the cloud's evolve with every slot active
+    N = cloud.max_parcels
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    u = lambda *sh: torch.rand(sh, generator=gen, device="cuda")
+    lo = torch.tensor([-0.01, 0.0, -0.01], device="cuda")[:, None]
+    ext = torch.tensor([0.02, 0.1, 0.02], device="cuda")[:, None]
+    full = c._replace(pos=lo + u(3, N) * ext, vel=(u(3, N) - 0.5) * 100.0,
+                      d=5e-6 + u(N) * 1e-4, T=320.0 + u(N) * 20.0,
+                      n_part=1.0 + u(N) * 100.0,
+                      active=torch.ones(N, device="cuda"))
+    fields = dict(rho=g.rho, U=g.U, T=g.T, mu=torch.full_like(g.T, 3.5e-5),
+                  p=g.p, Yv=g.Y[iv])
+    cloud.evolve(full, fields, AACHEN_DT, g.time)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        out, _ = cloud.evolve(full, fields, AACHEN_DT, g.time)
+    torch.cuda.synchronize()
+    ev_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"spray cloud evolve with all {N} slots active (labelled, not the "
+          f"path): {ev_ms:.3f} ms per call, against "
+          f"{spent['evolve'] * 1e3:.3f} ms with {n_act} active in the path")
+    check(bool(torch.isfinite(out.d).all()), "spray: full evolve non-finite")
+
+    # a labelled measurement: the chemistry with every cell in the bins
+    # (the fast tier off), the drain the path's inert chamber never needs
+    Yt = torch.movedim(g.Y, 0, -1)
+    n0 = K.launches["gj_inverse"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_chemistry(gas.thermo, gas.combustion.kinetics, g.T, g.p, Yt,
+        AACHEN_DT, opts=gas.combustion.ode_opts, T_threshold=280.0,
+        n_bins=gas.combustion.n_bins, fast_tier=False,
+        sort=gas.combustion.sort)
+    torch.cuda.synchronize()
+    drain_launches = K.launches["gj_inverse"] - n0
+    bin_lanes = -(-n_cells // gas.combustion.n_bins)
+    print(f"spray chemistry with every cell in its bins (labelled, not the "
+          f"path; fast tier off): {n_cells} lanes in "
+          f"{gas.combustion.n_bins} bins of {bin_lanes}, "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, gj_inverse launches "
+          f"{drain_launches}")
+    check(bool(torch.isfinite(res.T).all()), "spray: drain non-finite")
+    check(bin_lanes == AACHEN_BIN_LANES, f"spray: {bin_lanes} lanes a bin, "
+                                         f"phase_kernels timed {AACHEN_BIN_LANES}")
+    return counts, ms
+
+
+def phase_mist(torch, K):
+    """The water-mist detonation through HighSpeedSpraySolver: MIST_N cells
+    with MIST_PARCELS parcels of MIST_NP droplets in float32, the mist
+    released in the first step (soi at half a step); 2 warm-up and
+    SPRAY_STEPS timed steps (gj_inverse must launch); one step with the
+    cloud's evolve and the chemistry split timed inside it (phase_kernels
+    holds gj_inverse at the split's lanes). Returns (launch counts of the
+    timed steps, ms/step)."""
+    from deepflame_torch.cases import detonation_dt, watermist_detonation_1d
+    from deepflame_torch.lagrangian.cloud import SprayCloud
+    from deepflame_torch.solvers.high_speed import HighSpeedSolver
+    t0 = time.perf_counter()
+    dt = 0.3 * (1.4 / MIST_N) / 3500.0
+    solver, state = watermist_detonation_1d(
+        MECH, n=MIST_N, n_parcels=MIST_PARCELS, n_particle=MIST_NP,
+        soi=0.5 * dt, dtype=torch.float32, device="cuda")
+    check(abs(detonation_dt(solver.gas_solver, a_bound=3500.0) - dt) < 1e-15,
+          "mist: step")
+    torch.cuda.synchronize()
+    print(f"mist path: {MIST_N}-cell tube float32, {MIST_PARCELS} parcels x "
+          f"{MIST_NP:g}, soi {0.5 * dt:.4e} s (inside the first step), dt "
+          f"{dt:.6e} s, built in {time.perf_counter() - t0:.2f} s")
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, diag = solver.step(state, dt)
+        torch.cuda.synchronize()
+        print(f"mist warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    rec = _Recorder(solver)
+    state, diag, counts, wall = _timed_steps(torch, K, rec, state, dt,
+                                             SPRAY_STEPS)
+    ms = wall / SPRAY_STEPS * 1e3
+    lanes = [int(d["chem_lanes"]) for d in rec.diags]
+    print(f"mist path counts over {SPRAY_STEPS} steps: {json.dumps(counts)}; "
+          f"per step " + json.dumps({k: v / SPRAY_STEPS
+                                     for k, v in counts.items()}))
+    print(f"mist path: {ms:.2f} ms/step, "
+          f"{MIST_N / (wall / SPRAY_STEPS):.4e} cell-updates/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; chemistry "
+          f"lanes per step {lanes}")
+    rho, U, p, T, _ = solver.gas_solver.primitives(state.gas)
+    ix = int(p.reshape(-1).argmax())
+    n_act = int(state.cloud.active.sum())
+    print(f"mist state: {n_act} active parcels, p_max {float(p.max()):.6e} Pa "
+          f"at x = {(ix + 0.5) * 1.4 / MIST_N * 1e3:.2f} mm, T_max "
+          f"{float(T.max()):.2f} K, injected "
+          f"{float(state.cloud.m_injected):.6e} kg")
+    check(counts["gj_inverse"] > 0, f"mist: gj_inverse was not launched: "
+                                    f"{counts}")
+    check(n_act == MIST_PARCELS, f"mist: {n_act} active parcels")
+    check(bool(torch.isfinite(state.gas.rhoE).all() and torch.isfinite(T).all()),
+          "mist: non-finite state")
+    check(float(p.min()) > 0 and float(rho.min()) > 0, "mist: p or rho <= 0")
+    total, spent = _timed_many(
+        torch, [(SprayCloud, "evolve"), (HighSpeedSolver, "_chemistry_split")],
+        lambda: solver.step(state, dt))
+    spent = {k: sum(v) for k, v in spent.items()}
+    print(f"mist breakdown step: {total * 1e3:.2f} ms; cloud evolve "
+          f"{spent['evolve'] * 1e3:.2f} ms ({spent['evolve'] / total:.3f}), "
+          f"chemistry split {spent['_chemistry_split'] * 1e3:.2f} ms "
+          f"({spent['_chemistry_split'] / total:.3f})")
+    check(max(lanes) <= MIST_SPLIT_LANES, f"mist: {max(lanes)} split lanes, "
+                                          f"phase_kernels timed "
+                                          f"{MIST_SPLIT_LANES}")
+    return counts, ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2041,8 +2445,9 @@ def main() -> int:
                          "extension")
     ap.add_argument("--phases", metavar="LIST",
                     help="run only these of tci, sjet-pasr, sjet-edc, "
-                         "light, hs and fgm (comma-separated; light needs "
-                         "tci and sjet-pasr) after the build, and end "
+                         "light, hs, fgm, spray and mist (comma-separated; "
+                         "light needs tci and sjet-pasr; spray and mist run "
+                         "their gates first) after the build, and end "
                          "without the result lines")
     args = ap.parse_args()
 
@@ -2098,6 +2503,15 @@ def main() -> int:
         if "fgm" in only:
             phase_fgm(torch, K)
             phase_done("fgm")
+        if "spray" in only or "mist" in only:
+            spray_gates(torch)
+            phase_done("spray-gates")
+        if "spray" in only:
+            phase_spray(torch, K)
+            phase_done("spray")
+        if "mist" in only:
+            phase_mist(torch, K)
+            phase_done("mist")
         print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
               f"phase {json.dumps(seconds)}")
         print(card)
@@ -2143,6 +2557,12 @@ def main() -> int:
     phase_done("hs")
     counts["fgm"], ms["fgm"] = phase_fgm(torch, K)
     phase_done("fgm")
+    spray_gates(torch)
+    phase_done("spray-gates")
+    counts["spray"], ms["spray"] = phase_spray(torch, K)
+    phase_done("spray")
+    counts["mist"], ms["mist"] = phase_mist(torch, K)
+    phase_done("mist")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

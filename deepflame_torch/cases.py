@@ -7,7 +7,10 @@ box (`jet_flame_3d_les`, the case `bench.py` times) and on a blockMesh mesh
 2D H2-air detonation channel (`detonation_2d_h2`, examples/detonation_2d.py)
 and Sod shock tube (`sod_shock_tube`, tests/test_high_speed.py); and the
 flareFGM solver's 2D Sandia D jet (`sandia_d_fgm_2d`,
-examples/sandia_d_fgm_2d.py).
+examples/sandia_d_fgm_2d.py); the spray solvers' 3D aachenBomb chamber
+(`aachen_bomb_3d`, examples/aachen_bomb_3d.py, kEpsilon RAS) and the 1D
+water-mist detonation (`watermist_detonation_1d`,
+examples/detonation_1d_watermist.py).
 
 Each returns (solver, state) on `device` (default: the CUDA card); the Sod
 tube also its run plan.
@@ -26,18 +29,22 @@ from .chemistry.integrator import RosenbrockOptions
 from .chemistry.dnn import LAYERS, DFODENet, init_params
 from .combustion import DNNChemistry, Laminar
 from .constants import GAS_CONSTANT
+from .lagrangian.cloud import ConeInjector, ManualInjector, SprayCloud
+from .lagrangian.liquids import water
 from .mesh import (StructuredMesh, build_blockmesh, cyclic, empty, fixed_value,
                    parse_blockmesh_dict, symmetry, zero_gradient)
 from .solvers import LowMachConfig, LowMachSolver, LowMachSolverFL
 from .solvers.high_speed import HighSpeedConfig, HighSpeedSolver
-from .turbulence import sigma_model
+from .solvers.spray import HighSpeedSpraySolver, SpraySolver
+from .turbulence import KEpsilon, sigma_model
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
            "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl",
            "jet_with_combustion", "jet_function_objects", "jet_fields",
            "detonation_2d_h2", "detonation_dt", "sod_shock_tube",
-           "sandia_d_fgm_2d"]
+           "sandia_d_fgm_2d", "AACHEN_FLOW_PROFILE", "AACHEN_DT",
+           "aachen_bomb_3d", "watermist_detonation_1d"]
 
 
 def _fresh_mixture(mech):
@@ -558,3 +565,145 @@ def sandia_d_fgm_2d(table_path: str, nx: int = 96, ny: int = 48,
                       torch.zeros_like(X)])
     p0 = torch.full(mesh.shape, 101325.0, dtype=dtype, device=mesh.device)
     return solver, solver.fgm_initial_state(p0, Z0, c0, U0)
+
+
+# the aachenBomb injector's flowRateProfile (t [s], relative rate), as
+# examples/aachen_bomb_2d.py tabulates it
+AACHEN_FLOW_PROFILE = (
+    (0.0, 0.1272), (4.16667e-05, 6.1634), (8.33333e-05, 9.4778),
+    (0.000125, 9.5806), (0.000166667, 9.4184), (0.000208333, 9.0926),
+    (0.00025, 8.7011), (0.000291667, 8.2239), (0.000333333, 8.0401),
+    (0.000375, 8.8450), (0.000416667, 8.9174), (0.000458333, 8.8688),
+    (0.0005, 8.8882), (0.000541667, 8.6923), (0.000583333, 8.0014),
+    (0.000625, 7.2582), (0.000666667, 7.2757), (0.000708333, 6.9680),
+    (0.00075, 6.7608), (0.000791667, 6.6502), (0.000833333, 6.7695),
+    (0.000875, 5.5774), (0.000916667, 4.8649), (0.000958333, 5.0805),
+    (0.001, 4.9547), (0.00104167, 4.5613), (0.00108333, 4.4536),
+    (0.001125, 5.2651), (0.00116667, 5.2560), (0.00120833, 5.1737),
+    (0.00125, 3.9213), (0.001251, 0.0),
+)
+AACHEN_DT = 2.5e-6            # the case's deltaT [s]
+
+
+def aachen_bomb_3d(mech_path: str, n_xz: int = 41, n_y: int = 100,
+                   liquid: str = "water", dtype=torch.float32, device=None):
+    """The reference's threeD_aachenBomb (examples/aachen_bomb_3d.py): a
+    20 x 100 x 20 mm chamber of n_xz x n_y x n_xz cells, walls all round,
+    800 K and 5 MPa air (Y_O2 0.23, Y_N2 0.77), U = 0, kEpsilon RAS (k0 1,
+    eps0 90), Laminar stiff chemistry (rtol 1e-4, atol 1e-8, 20,000 steps,
+    grow 10, N2 inert). A cone injector at (0, 99.5 mm, 0) pointing down
+    (20 degree cone, the flowRateProfile table with 6e-6 kg over 1.25 ms,
+    Rosin-Rammler sizes, flow-rate-and-discharge speed with Cd 0.9 and a
+    0.19 mm orifice, 320 K) sprays 50 parcels a step into a cloud of 32,768
+    slots with Spalding evaporation, ReitzDiwakar breakup and rebound on all
+    six walls. `liquid`: "water" only, whose vapour H2O is a species of
+    the test mechanism (the reference's n-heptane needs C7_oneStep, which
+    the repository lacks). Step AACHEN_DT. (SpraySolver, SprayState) on
+    `device`; the cloud draws from SprayCloud.init's default generator
+    (seed 0)."""
+    if liquid != "water":
+        raise ValueError(f"aachen_bomb_3d sprays water only, not {liquid!r}: "
+                         "the n-heptane chamber needs C7_oneStep")
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    mesh = StructuredMesh.box([0.02, 0.1, 0.02], [n_xz, n_y, n_xz],
+                              origin=(-0.01, 0.0, -0.01), device=mech.device)
+    wall_s = (zero_gradient(), zero_gradient())
+    wall_u = (fixed_value(0.0), fixed_value(0.0))
+    b_s = (wall_s, wall_s, wall_s)
+    b_u = (wall_u, wall_u, wall_u)
+    comb = Laminar(th, kin, ode_opts=RosenbrockOptions(
+        rtol=1e-4, atol=1e-8, max_steps=20000, grow=10.0))
+    gas = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr, combustion=comb,
+        bcs_U=(b_u, b_u, b_u), bcs_p=b_s, bcs_h=b_s, bcs_Y=b_s, bcs_rho=b_s,
+        config=LowMachConfig(chemistry=True,
+                             inert_index=mech.species_index("N2")),
+        turbulence=KEpsilon())
+    liq = water()
+    inj = ConeInjector(
+        position=(0.0, 0.0995, 0.0), direction=(0.0, -1.0, 0.0),
+        cone_angle_deg=20.0, t_start=0.0, t_end=1.25e-3, T_inject=320.0,
+        mdot_profile=AACHEN_FLOW_PROFILE, mass_total=6e-6,
+        size_dist="RosinRammler", rr_d=1.5e-4, rr_n=3.0, rr_min=1e-6,
+        rr_max=1.5e-4, u_from_flow=True, Cd=0.9, d_outer=1.9e-4,
+        rho_liquid=float(liq.rho(320.0)), parcels_per_step=50)
+    rebound = tuple((ax, side, "rebound") for ax in (0, 1, 2)
+                    for side in (0, 1))
+    cloud = SprayCloud(mesh=mesh, liquid=liq, injector=inj,
+                       max_parcels=32768, evaporation="Spalding",
+                       breakup="ReitzDiwakar", wall_interaction=rebound)
+    solver = SpraySolver(gas_solver=gas, cloud=cloud,
+                         fuel_index=mech.species_index(liq.name))
+    Y = np.zeros((mech.n_species,) + mesh.shape)
+    Y[mech.species_index("O2")] = 0.23
+    Y[mech.species_index("N2")] = 0.77
+    full = lambda v: torch.full(mesh.shape, v, dtype=dtype,
+                                device=mesh.device)
+    state = solver.initial_state(full(5e6), full(800.0), Y, k0=1.0,
+                                 eps0=90.0)
+    return solver, state
+
+
+def watermist_detonation_1d(mech_path: str, n: int = 700,
+                            n_parcels: int = 80_000, n_particle: float = 275.0,
+                            soi: float = 3.73e-4, dtype=torch.float32,
+                            device=None):
+    """The reference's oneD_detH2WaterMist (examples/
+    detonation_1d_watermist.py at its --full geometry): a 1.4 m tube of n
+    cells, H2-air (Y_H2/O2/N2 0.02851/0.226/0.745) at 1 atm and 300 K with
+    a 2000 K, 90 atm driver at the reflecting left wall; HLLC, RK2,
+    vanLeer, split ODE chemistry above 500 K. `n_parcels` 5 um water
+    parcels of `n_particle` droplets each (the reference's manualInjection:
+    80,000 x 275), evenly over [0.6, 1.4) m, released in the step holding
+    `soi`; Spalding evaporation, no breakup. Step:
+    detonation_dt(solver.gas_solver, a_bound=3500.0), 0.3 dx / 3500 m/s.
+    (HighSpeedSpraySolver,
+    HighSpeedSprayState) on `device`."""
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    tr = make_transport(mech, dtype)
+    Lx = 1.4
+    mesh = StructuredMesh.box([Lx, Lx / n, Lx / n], [n, 1, 1],
+                              device=mech.device)
+    e = (empty(), empty())
+    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
+    b_un = ((symmetry(negate=True), zero_gradient()), e, e)
+    f64 = dtype == torch.float64
+    cfg = HighSpeedConfig(
+        flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
+        ode_opts=RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
+                                   atol=1e-12 if f64 else 1e-8,
+                                   max_steps=5000),
+        T_threshold=500.0)
+    gas = HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
+                          bcs_rho=b_scalar, bcs_U=(b_un, b_scalar, b_scalar),
+                          bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+    x0 = 3.0 / 7.0 * Lx
+    xs = np.linspace(x0, Lx * 0.999, n_parcels)
+    half = 0.5 * Lx / n
+    positions = np.stack([xs, np.full_like(xs, half), np.full_like(xs, half)],
+                         axis=1)
+    inj = ManualInjector(positions=positions, soi=soi, d0=5e-6,
+                         n_particle=n_particle, T_inject=300.0,
+                         rho_liquid=997.0)
+    cloud = SprayCloud(mesh=mesh, liquid=water(), injector=inj,
+                       max_parcels=n_parcels, evaporation="Spalding",
+                       breakup="none", wall_interaction=())
+    solver = HighSpeedSpraySolver(gas_solver=gas, cloud=cloud, transport=tr,
+                                  vapor_index=mech.species_index("H2O"))
+    Yv = np.zeros(mech.n_species)
+    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
+        Yv[mech.species_index(name)] = y
+    Yv /= Yv.sum()
+    X, _, _ = mesh.cell_centers(dtype)
+    drv = X < max(0.002 * Lx, 1.5 * mesh.dx)
+    p0, T0 = 101325.0, 300.0
+    T = torch.where(drv, 2000.0, T0).to(dtype)
+    p = torch.where(drv, 90.0 * p0, p0).to(dtype)
+    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    return solver, solver.initial_state(p, T, Y.contiguous())

@@ -24,7 +24,7 @@ from .integrator import (RosenbrockOptions, rk23_attempt_batched,
 from .kinetics import KineticsData, production_rates
 from .thermo import ThermoData
 
-__all__ = ["constant_pressure_rhs_batched", "constant_volume_rhs",
+__all__ = ["constant_pressure_rhs", "constant_pressure_rhs_batched", "constant_volume_rhs",
            "constant_volume_rhs_batched", "ignite", "solve_chemistry",
            "ChemistryResult"]
 
@@ -41,6 +41,15 @@ def constant_pressure_rhs_batched(thermo: ThermoData, kin: KineticsData, p):
         dT = -(h_molar * wdot).sum(1) / (rho * cp)
         return torch.cat([dT[:, None], dY], dim=1)
     return rhs
+
+
+def constant_pressure_rhs(thermo: ThermoData, kin: KineticsData, p):
+    """RHS for one state s = [T, Y...] at fixed pressure p (a number or a
+    0-d tensor)."""
+    p = torch.as_tensor(p, dtype=thermo.W.dtype,
+                        device=thermo.W.device).reshape(1)
+    rhs_b = constant_pressure_rhs_batched(thermo, kin, p)
+    return lambda s: rhs_b(s[None])[0]
 
 
 def constant_volume_rhs_batched(thermo: ThermoData, kin: KineticsData, rho):

@@ -21,7 +21,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["build", "load_native", "flare_table_native", "BUILD_DIR"]
+__all__ = ["build", "load_native", "native_available", "flare_table_native",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flare_table.cpp",)
@@ -58,6 +59,15 @@ def build() -> Path:
                            f"{r.stdout}{r.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def native_available() -> bool:
+    """Whether the native library is built or can be built here (g++)."""
+    try:
+        load_native()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def load_native():

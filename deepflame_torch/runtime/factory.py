@@ -3,10 +3,10 @@
 Port of deepflame_tpu/runtime/factory.py (the reference solvers'
 createFields.H: runtime selection of thermo, combustion model and
 turbulence model from the case dictionaries), for what the port has:
-laminar, EDC, PaSR, noCombustion and DNN combustion; laminar flow and the
-Smagorinsky, WALE, Sigma and dynamic Smagorinsky LES models; the low-Mach
-and the density-based solvers. Every other selection raises NotImplementedError naming the ROADMAP
-item that ports it.
+laminar, EDC, PaSR, noCombustion and DNN combustion; laminar flow, the
+Smagorinsky, WALE, Sigma and dynamic Smagorinsky LES models and the
+kEpsilon, RNGkEpsilon and kOmegaSST RAS models; the low-Mach and the
+density-based solvers. An unknown model raises ValueError.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from ..chemistry.integrator import RosenbrockOptions
 from ..combustion import DNNChemistry, EDC, Laminar, NoCombustion, PaSR
 from ..solvers.high_speed import HighSpeedConfig, HighSpeedSolver
 from ..solvers.low_mach import LowMachConfig, LowMachSolver
-from ..turbulence import dynamic_smagorinsky, sigma_model, smagorinsky, wale
+from ..turbulence import (KEpsilon, KOmegaSST, dynamic_smagorinsky,
+                          sigma_model, smagorinsky, wale)
 from .config import CaseConfig
 
 __all__ = ["build_chemistry", "build_combustion", "build_turbulence",
@@ -79,7 +80,13 @@ def build_turbulence(case: CaseConfig):
             raise ValueError(f"unknown LES model {t.les_model!r}")
         return _LES[t.les_model](Pr_t=t.Pr_t, Sc_t=t.Sc_t)
     if t.simulation_type == "RAS":
-        raise NotImplementedError(f"RAS model {t.ras_model}: ROADMAP A12")
+        if t.ras_model == "kEpsilon":
+            return KEpsilon(Pr_t=t.Pr_t, Sc_t=t.Sc_t)
+        if t.ras_model == "RNGkEpsilon":
+            return KEpsilon.rng(Pr_t=t.Pr_t, Sc_t=t.Sc_t)
+        if t.ras_model == "kOmegaSST":
+            return KOmegaSST(Pr_t=t.Pr_t, Sc_t=t.Sc_t)
+        raise ValueError(f"unknown RAS model {t.ras_model!r}")
     raise ValueError(t.simulation_type)
 
 

@@ -125,8 +125,12 @@ class FGMSolver(LowMachSolver):
         out = lookup_many(tb, _STATE_TABLES, (hloss, Z, c, gz, gc, gzc))
         return tuple(out[k] for k in _STATE_TABLES)
 
-    def step(self, s: FGMState, dt):
-        """One PIMPLE step."""
+    def step(self, s: FGMState, dt, sources=None):
+        """One PIMPLE step. sources: the spray coupling dict (Srho, SU, Sh)
+        or None; the evaporated mass enters continuity and the Z, c, cvar
+        and Zcvar equations (the vapour carries mixture fraction), SU the
+        momentum and Sh the enthalpy, where the JAX step adds them. As
+        there, the pressure equation takes no mass source."""
         cfg = self.config
         mesh = self.mesh
         dtype = s.p.dtype
@@ -138,9 +142,14 @@ class FGMSolver(LowMachSolver):
         Z, Zvar, c, cvar, Zcvar, He = s.Z, s.Zvar, s.c, s.cvar, s.Zcvar, s.He
         diag = {}
         bz = self.bcs_Z
+        src_rho = sources["Srho"] if sources else None
+        with_src = (lambda q: q) if src_rho is None \
+            else (lambda q: q + src_rho)
 
         for outer in range(cfg.n_outer):
             rho = rho_old - dt * div_flux(phi, mesh)
+            if src_rho is not None:
+                rho = rho + dt * src_rho
 
             # table thermo-transport coefficients
             T_tab, W_tab, cp_tab, nu_tab, omgc = self._lookup_state(
@@ -155,7 +164,8 @@ class FGMSolver(LowMachSolver):
                 eps_sgs = torch.ones_like(mu)
 
             U, HbyA, rAU = self._momentum(
-                rho, rho_old, U, U_old, phi, p, mu + mu_t, dt, stats=diag)
+                rho, rho_old, U, U_old, phi, p, mu + mu_t, dt,
+                SU=sources["SU"] if sources else None, stats=diag)
 
             # ===== control-scalar transport
             D_scalar = mu_t / cfg.Sc_t + mu / cfg.Sc
@@ -173,14 +183,14 @@ class FGMSolver(LowMachSolver):
 
             zeros = torch.zeros(mesh.shape, dtype=dtype, device=self.device)
             chi_rate = cfg.Cd * (eps_sgs / torch.clamp(k_sgs, min=1e-10))
-            Z = transport("Z", Z, Z_old, zeros)
+            Z = transport("Z", Z, Z_old, with_src(zeros))
             gZ = grad(Z, bz, mesh)
             magsq_gZ = sum(gZ[ax] ** 2 for ax in range(3))
             Zvar = transport("Zvar", Zvar, Zvar_old,
                              2.0 * (mu_t / cfg.Sc_t) * magsq_gZ
                              - 2.0 * rho * (chi_rate * Zvar * 0.5), 0.0, 0.25)
             if cfg.combustion_on:
-                c = transport("c", c, c_old, rho * omgc)
+                c = transport("c", c, c_old, with_src(rho * omgc))
                 gz = Zvar / torch.clamp(Z * (1 - Z), min=1e-6)
                 if cfg.solve_cvar:
                     gC = grad(c, bz, mesh)
@@ -188,11 +198,10 @@ class FGMSolver(LowMachSolver):
                     cOc = lookup(self.table, "cOc",
                                  (None, Z, c, gz, cvar / torch.clamp(
                                      c * (1 - c), min=1e-6), None))
-                    cvar = transport("cvar", cvar, cvar_old,
-                                     2.0 * (mu_t / cfg.Sc_t) * magsq_gC
-                                     - 2.0 * rho * (chi_rate * cvar * 0.5)
-                                     + 2.0 * rho * (cOc - c * omgc),
-                                     0.0, 0.25)
+                    cvar = transport("cvar", cvar, cvar_old, with_src(
+                        2.0 * (mu_t / cfg.Sc_t) * magsq_gC
+                        - 2.0 * rho * (chi_rate * cvar * 0.5)
+                        + 2.0 * rho * (cOc - c * omgc)), 0.0, 0.25)
                 if cfg.solve_zcvar:
                     gC2 = grad(c, bz, mesh)
                     cross = sum(gZ[ax] * gC2[ax] for ax in range(3))
@@ -200,10 +209,10 @@ class FGMSolver(LowMachSolver):
                                  (None, Z, c, gz, cvar / torch.clamp(
                                      c * (1 - c), min=1e-6), None))
                     Zcvar = transport(
-                        "Zcvar", Zcvar, Zcvar_old,
-                        2.0 * (mu_t / cfg.Sc_t) * cross
-                        - 2.0 * rho * (chi_rate * Zcvar * 0.5)
-                        + rho * (ZOc - Z * omgc), -0.25, 0.25)
+                        "Zcvar", Zcvar, Zcvar_old, with_src(
+                            2.0 * (mu_t / cfg.Sc_t) * cross
+                            - 2.0 * rho * (chi_rate * Zcvar * 0.5)
+                            + rho * (ZOc - Z * omgc)), -0.25, 0.25)
 
             # ===== enthalpy (transported, else the adiabatic relation)
             if cfg.solve_enthalpy:
@@ -211,7 +220,8 @@ class FGMSolver(LowMachSolver):
                          + fvm_div(phi, He, mesh, bz, cfg.div_scheme)
                          + fvm_laplacian(D_f, mesh, bz, dtype=dtype,
                                          sign=-1.0))
-                r = solve_fvmatrix(eqn_h.with_source(dpdt), He,
+                r = solve_fvmatrix(eqn_h.with_source(
+                    dpdt + sources["Sh"] if sources else dpdt), He,
                                    tol=cfg.h_tol, max_iter=cfg.max_iter_u)
                 He = r.x
                 diag["iters_He"] = r.iterations

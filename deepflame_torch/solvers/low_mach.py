@@ -23,14 +23,17 @@ Helmholtz kernel (on the CPU, their plain versions), preconditioned by
 Jacobi or by a geometric-multigrid V-cycle whose levels run the Helmholtz
 kernel too (`LowMachConfig.p_precond`).
 
-Mixing models (EDC, PaSR) read the SGS k, epsilon and nu, computed before
-the chemistry for the models whose `reads_turb` is set; PaSR's dynamicScale
-advances its own Z, Zvar and Chi there (`cscalars` of the state, BCs
-`bcs_Z`), each transport one batched solve on the stencil kernel.
+Mixing models (EDC, PaSR) read the SGS (or RAS) k, epsilon and nu,
+computed before the chemistry for the models whose `reads_turb` is set;
+PaSR's dynamicScale advances its own Z, Zvar and Chi there (`cscalars` of
+the state, BCs `bcs_Z`), each transport one batched solve on the stencil
+kernel. A RAS model (turbulence.ras) carries its (k, eps) or (k, omega) in
+`turb`: mu_t comes from `mu_t_from` and the model's `advance` runs at the
+end of the step. `step(s, dt, sources)` takes the spray cloud's Srho, SU,
+Sh and SY (added to species SY_index) where the JAX step puts them.
 
-Not in this slice: spray sources, RAS models and processor (multi-device)
-boundaries. The JAX config's `use_pallas` chose a TPU kernel and has no
-counterpart here.
+Not in this slice: processor (multi-device) boundaries. The JAX config's
+`use_pallas` chose a TPU kernel and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -70,7 +73,8 @@ class LowMachState(NamedTuple):
     phi: tuple
     dpdt: torch.Tensor
     time: torch.Tensor
-    turb: tuple = ()          # RAS fields (k, eps); () without a RAS model
+    turb: tuple = ()          # RAS fields (k, eps or omega); () without
+                              # a RAS model
     cscalars: tuple = ()      # combustion-model-owned fields (PaSR
                               # dynamicScale Z, Zvar, Chi), else ()
     chem_dt: Any = None       # per-cell warm-start chemistry step, or None
@@ -120,7 +124,7 @@ class LowMachSolver:
                           # of FieldBCs, one per species
     bcs_rho: Any
     config: LowMachConfig = LowMachConfig()
-    turbulence: Any = None     # LESModel or None (laminar)
+    turbulence: Any = None     # LESModel, KEpsilon, KOmegaSST or None
     bcs_Z: Any = None          # BCs of combustion-owned scalars (PaSR
                                # dynamicScale's Z); default bcs_coeff
     thermo_tran_nn: Any = None  # callable (T, p, Yt) -> dict of any of mu,
@@ -212,9 +216,7 @@ class LowMachSolver:
         nz), given as tensors or arrays; placed on the solver's device in the
         thermo tables' dtype. Z0: the initial mixture fraction of a model
         with transported scalars (PaSR dynamicScale; default 0). k0, eps0:
-        the RAS fields' initial values, which the port has no model for."""
-        if getattr(self.turbulence, "is_ras", False):
-            raise NotImplementedError("RAS models: ROADMAP A12")
+        the RAS fields' initial values (turbulence.initial_fields)."""
         dtype, dev = self.dtype, self.device
         f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
         p, T, Y = f(p), f(T), f(Y)
@@ -222,6 +224,10 @@ class LowMachSolver:
         U = torch.zeros((3,) + sh, dtype=dtype, device=dev) if U is None else f(U)
         Yt = torch.movedim(Y, 0, -1)
         rho = self.thermo.rho(p, T, Yt)
+        turb = ()
+        if self.is_ras:
+            turb = self.turbulence.initial_fields(sh, dtype, k0, eps0,
+                                                  device=dev)
         cscalars = ()
         if getattr(self.combustion, "n_aux", 0):
             cscalars = self.combustion.aux_init(sh, dtype, Z0)
@@ -232,17 +238,32 @@ class LowMachSolver:
         return LowMachState(rho=rho, U=U, p=p, ha=self.thermo.h_mass(T, Yt),
                             Y=Y, T=T, phi=self._face_flux(rho, U),
                             dpdt=torch.zeros(sh, dtype=dtype, device=dev),
-                            time=f(time), cscalars=cscalars, chem_dt=chem_dt)
+                            time=f(time), turb=turb, cscalars=cscalars,
+                            chem_dt=chem_dt)
+
+    @property
+    def is_ras(self) -> bool:
+        return getattr(self.turbulence, "is_ras", False)
+
+    def _mu_t(self, rho, U, turb):
+        """Eddy viscosity: the RAS model's from its transported pair, else
+        the LES model's from the velocity gradient."""
+        if self.is_ras:
+            return self.turbulence.mu_t_from(rho, turb[0], turb[1])
+        return self.turbulence.mu_t(rho, U, self.bcs_U, self.mesh)
 
     def _turb_q(self, s: LowMachState, dt, stats: dict):
-        """The turbulence fields a mixing model reads (SGS k, epsilon and
-        nu from the start-of-step state) and the model's transported
-        scalars advanced over dt: (turb_q, cscalars)."""
+        """The turbulence fields a mixing model reads (SGS or RAS k,
+        epsilon and nu from the start-of-step state) and the model's
+        transported scalars advanced over dt: (turb_q, cscalars)."""
         mesh = self.mesh
         rho, U, T, p = s.rho, s.U, s.T, s.p
         mu0, _, _ = self._mixture_update(p, T, s.Y)
-        mu_t0 = self.turbulence.mu_t(rho, U, self.bcs_U, mesh)
-        k_sgs, eps_sgs = self.turbulence.sgs_k_epsilon(mu_t0, rho, mesh)
+        mu_t0 = self._mu_t(rho, U, s.turb)
+        if self.is_ras:
+            k_sgs, eps_sgs = self.turbulence.k_eps(s.turb)
+        else:
+            k_sgs, eps_sgs = self.turbulence.sgs_k_epsilon(mu_t0, rho, mesh)
         turb_q = dict(k=k_sgs, epsilon=eps_sgs, nu=mu0 / rho)
         cscalars = s.cscalars
         if getattr(self.combustion, "n_aux", 0):
@@ -255,7 +276,10 @@ class LowMachSolver:
         return turb_q, cscalars
 
     # ----------------------------------------------------------------- step
-    def step(self, s: LowMachState, dt) -> tuple[LowMachState, dict]:
+    def step(self, s: LowMachState, dt,
+             sources=None) -> tuple[LowMachState, dict]:
+        """One PIMPLE step. sources: the spray coupling dict Srho, SU (3,
+        ...), Sh, SY and SY_index (the species that takes SY), or None."""
         cfg = self.config
         mesh = self.mesh
         dtype = s.T.dtype
@@ -286,22 +310,30 @@ class LowMachSolver:
         else:
             RR = torch.zeros_like(Y)
             chem_dt_new = s.chem_dt
+        src_rho = sources["Srho"] if sources else None
+        if sources is not None and sources.get("SY_index") is not None:
+            RR = RR.clone()
+            RR[sources["SY_index"]] += sources["SY"]
 
         for outer in range(cfg.n_outer):
-            # ===== rhoEqn (explicit continuity)
+            # ===== rhoEqn (explicit continuity, + the spray's mass)
             rho = rho_old - dt * div_flux(phi, mesh)
+            if src_rho is not None:
+                rho = rho + dt * src_rho
 
-            # ===== coefficient fields (molecular + SGS effective)
+            # ===== coefficient fields (molecular + SGS or RAS effective)
             mu, alpha, rhoD = self._mixture_update(p, T, Y)
+            mu_mol = mu
             if self.turbulence is not None:
-                mu_t = self.turbulence.mu_t(rho, U, self.bcs_U, mesh)
+                mu_t = self._mu_t(rho, U, s.turb)
                 mu = mu + mu_t
                 alpha = alpha + mu_t / self.turbulence.Pr_t
                 rhoD = rhoD + mu_t[None] / self.turbulence.Sc_t
 
             # ===== UEqn
-            U, HbyA, rAU = self._momentum(rho, rho_old, U, U_old, phi, p, mu,
-                                          dt, stats=diag)
+            U, HbyA, rAU = self._momentum(
+                rho, rho_old, U, U_old, phi, p, mu, dt,
+                SU=sources["SU"] if sources else None, stats=diag)
 
             # ===== YEqn: all species in one batched solve
             lim_mv = None
@@ -368,7 +400,10 @@ class LowMachSolver:
                                limiter_override=lim_mv)
                      + fvm_laplacian(alpha_f, mesh, bcs_h, dtype=dtype,
                                      sign=-1.0))
-            eqn_h = eqn_h.with_source(dpdt - dKdt + hcorr_div)
+            src_h = dpdt - dKdt + hcorr_div
+            if sources:
+                src_h = src_h + sources["Sh"]
+            eqn_h = eqn_h.with_source(src_h)
             if cfg.solve_energy:
                 res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
                                        max_iter=cfg.max_iter_u)
@@ -386,7 +421,7 @@ class LowMachSolver:
             p, phi, U, dpdt, rho, p_res = self._pressure_loop(
                 p, p_old, psi, rho_fn, HbyA, rAU, dt, rho_old=rho_old,
                 phi_old=s.phi, rhoU_old_f=self._face_flux(rho_old, U_old),
-                stats=diag)
+                src_rho=src_rho, stats=diag)
             diag[f"p_res_{outer}"] = p_res
             if outer < cfg.n_outer - 1:
                 p = p_prev + cfg.p_relax * (p - p_prev)
@@ -394,12 +429,21 @@ class LowMachSolver:
                 rho = rho_fn(p)
                 dpdt = (p - p_old) / dt
 
+        # ===== turbulence->correct(): RAS transport at the end of the step
+        turb = s.turb
+        if self.is_ras:
+            k_new, eps_new, _ = self.turbulence.advance(
+                turb[0], turb[1], rho, rho_old, phi, U, mu_mol, self.bcs_U,
+                self.bcs_coeff, mesh, dt)
+            turb = (k_new, eps_new)
+            diag["k_max"] = gmax(k_new)
+
         rho_eos = self.thermo.rho(p, T, torch.movedim(Y, 0, -1))
         diag["continuity_err"] = gmax((rho_eos - rho).abs()) / gmean(rho)
         diag["T_min"] = gmin(T)
         diag["T_max"] = gmax(T)
         return LowMachState(rho=rho, U=U, p=p, ha=ha, Y=Y, T=T, phi=phi,
-                            dpdt=dpdt, time=s.time + dt, turb=s.turb,
+                            dpdt=dpdt, time=s.time + dt, turb=turb,
                             cscalars=cscalars, chem_dt=chem_dt_new), diag
 
     # ---------------------------------------------- shared PIMPLE blocks
@@ -408,9 +452,11 @@ class LowMachSolver:
         P = pad_field(f, self.bcs_coeff, self.mesh)
         return _face_diff(interpolate(P, ax), ax) / self.mesh.spacing[ax]
 
-    def _momentum(self, rho, rho_old, U, U_old, phi, p, mu, dt, stats=None):
+    def _momentum(self, rho, rho_old, U, U_old, phi, p, mu, dt, SU=None,
+                  stats=None):
         """Implicit momentum predictor: returns (U, HbyA, rAU). The three
-        components are solved as one batch; rAU is lane 0's."""
+        components are solved as one batch; rAU is lane 0's. SU: the
+        spray's momentum source (3, ...), or None."""
         mesh = self.mesh
         cfg = self.config
         dtype = p.dtype
@@ -426,6 +472,7 @@ class LowMachSolver:
                   + self._grad_comp(mu * gU[2][c], 2)
                   - g_div[c] * (2.0 / 3.0)) for c in range(3)]
         srcs = torch.stack([-gp[c] + corrs[c]
+                            + (SU[c] if SU is not None else 0.0)
                             + (rho * cfg.gravity[c] if cfg.gravity[c] else 0.0)
                             for c in range(3)])
         bcs_u = self.bcs_U_lanes
@@ -463,9 +510,10 @@ class LowMachSolver:
 
     def _pressure_loop(self, p, p_old, psi, rho_fn, HbyA, rAU, dt,
                        rho_old=None, phi_old=None, rhoU_old_f=None,
-                       stats=None):
+                       src_rho=None, stats=None):
         """Compressible pressure correctors: returns (p, phi, U, dpdt, rho,
-        last initial residual). The CG matvec is the Helmholtz kernel on the
+        last initial residual). src_rho: the spray's mass source, in the
+        pressure equation and the continuity density, or None. The CG matvec is the Helmholtz kernel on the
         homogeneously padded iterate; the preconditioner is Jacobi on the
         exact stencil diagonal or one multigrid V-cycle, whose hierarchy is
         built at the first corrector and shared by the others."""
@@ -500,7 +548,10 @@ class LowMachSolver:
             eqn_p = (fvm_source_implicit(coeff_d, mesh, self.bcs_p, dtype=dtype)
                      + fvm_laplacian(rhorAUf, mesh, self.bcs_p, dtype=dtype,
                                      sign=-1.0))
-            eqn_p = eqn_p.with_source(rho_prev / dt - div_flux(phiHbyA, mesh))
+            src_p = rho_prev / dt - div_flux(phiHbyA, mesh)
+            if src_rho is not None:
+                src_p = src_p + src_rho
+            eqn_p = eqn_p.with_source(src_p)
             apply_A = lambda x: helmholtz7_apply(
                 pad_field(x, self.bcs_p, mesh, homogeneous=True),
                 rhorAUf, coeff_d, mesh.spacing)
@@ -532,6 +583,8 @@ class LowMachSolver:
         # density going forward is the continuity-consistent one
         if rho_old is not None:
             rho = rho_old - dt * div_flux(phi, mesh)
+            if src_rho is not None:
+                rho = rho + dt * src_rho
         else:
             rho = rho_fn(p)
         return p, phi, U, dpdt, rho, p_res

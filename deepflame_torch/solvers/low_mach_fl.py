@@ -38,7 +38,7 @@ from ..ops.linsolve import cg, solve_fvmatrix
 from ..parallel.context import gmax, gmean, gmin
 from .low_mach import LowMachConfig
 
-__all__ = ["LowMachFLState", "LowMachSolverFL"]
+__all__ = ["LowMachFLState", "LowMachSolverFL", "make_step_fl"]
 
 
 class LowMachFLState(NamedTuple):
@@ -195,7 +195,7 @@ class LowMachSolverFL:
     def step(self, s: LowMachFLState, dt, sources=None):
         if sources is not None:
             raise NotImplementedError("spray sources on the face-list "
-                                      "backend are a later slice")
+                                      "backend: ROADMAP A13")
         cfg = self.config
         m = self.m_p
         dtype = s.T.dtype
@@ -494,3 +494,11 @@ class LowMachSolverFL:
             dpdt = (p - p_old) / dt
         rho = rho_old - dt * div_flux_fl(m, phi, phi_b)
         return p, phi, tuple(phi_b), U, dpdt, rho, p_res
+
+
+def make_step_fl(solver):
+    """`step(state, dt, sources=None) -> (state, diag)` of a face-list
+    solver. JAX compiles its step here with the mesh as a traced argument;
+    the port runs eagerly, so this is the solver's own step. Spray sources
+    on the face-list backend raise NotImplementedError (ROADMAP A13)."""
+    return solver.step

@@ -142,6 +142,19 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "native").exists()
 
 
+def test_native_available(tmp_path, monkeypatch):
+    """native_available: True where g++ builds the library, False where it
+    cannot be built; it never raises."""
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the native library with")
+    assert tnative.native_available()
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    assert tnative.native_available() is False
+
+
 def _deep_params(seed, hidden=(64, 64, 32)):
     """Seeded weights and normalisations whose outputs stay near a burnt
     manifold's (T about 1200 K, W 25), so that the jet stays physical."""

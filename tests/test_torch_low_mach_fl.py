@@ -412,6 +412,33 @@ def test_fl_solver_raises_on_later_slices():
 
 # ------------------------------------------------------- repairs of the port
 
+def test_make_step_fl_steps_like_the_solver():
+    """make_step_fl(solver) is the solver's eager step(state, dt,
+    sources=None); spray sources raise NotImplementedError naming A13."""
+    from deepflame_torch.solvers.low_mach_fl import make_step_fl
+    gt = tbm.build_blockmesh(tbm.parse_blockmesh_dict(DUCT_DICT))
+    m = gt.with_bcs({k: tmesh.zero_gradient() for k in gt.patch_names
+                     if k not in ("zlo", "zhi")}, torch.float64, device="cpu")
+    th, tr, kin = _air_t()
+    solver = LowMachSolverFL(m_p=m, m_h=m, m_Y=m, m_rho=m, m_U=(m, m, m),
+                             thermo=th, transport=tr,
+                             combustion=tcomb.NoCombustion(th, kin),
+                             config=LowMachConfig(chemistry=False))
+    rng = np.random.default_rng(2)
+    s = solver.initial_state(np.full(m.n_cells, 1e5),
+                             300.0 + rng.uniform(0, 50.0, m.n_cells),
+                             np.ones((m.n_cells, 1)))
+    step = make_step_fl(solver)
+    a, da = step(s, 1e-5)
+    b, db = solver.step(s, 1e-5)
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            assert torch.equal(x, y)
+    assert int(da["iters_p"]) == int(db["iters_p"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        step(s, 1e-5, {"Srho": torch.zeros(m.n_cells, dtype=torch.float64)})
+
+
 def test_combustion_correct_takes_turb_like_jax():
     """correct(T, p, Y, dt, turb=None, dt_start=None) in every model, as in
     the JAX package: the face-list step passes the turbulence fields fifth,

@@ -179,3 +179,26 @@ def test_integrate_batched_trip_count_matches_jax():
     y2, dt2 = t_integrate(rhs_t, torch.as_tensor(s0), torch.as_tensor(t_end),
                           TOpts(**kw))
     assert torch.equal(y2, yt) and torch.equal(dt2, dtt)
+
+
+def test_constant_pressure_rhs_matches_jax():
+    """The single-state constant-pressure RHS, as tests/test_reactor.py
+    hands it to scipy (p a 0-d array, s = [T, Y...]): fresh H2-air from 900
+    to 2400 K, partly burnt states among them, within 1e-12 of the largest
+    |d/dt| of each component group (T and Y)."""
+    from deepflame_tpu.chemistry.reactor import constant_pressure_rhs
+    thj, kj, tht, kt, mech = _tables()
+    rng = np.random.default_rng(5)
+    rhs_j = constant_pressure_rhs(thj, kj, jnp.asarray(101325.0))
+    rhs_t = treactor.constant_pressure_rhs(tht, kt, 101325.0)
+    Y0 = _fresh(mech, 1)[0]
+    for T in (900.0, 1200.0, 1800.0, 2400.0):
+        Y = Y0 + rng.uniform(0.0, 2e-3, Y0.shape)
+        Y /= Y.sum()
+        s = np.concatenate([[T], Y])
+        a = np.asarray(rhs_j(jnp.asarray(s)))
+        b = rhs_t(torch.as_tensor(s)).numpy()
+        for sl in (slice(0, 1), slice(1, None)):
+            assert np.abs(a[sl] - b[sl]).max() \
+                <= 1e-12 * np.abs(a[sl]).max(), (T, sl)
+    assert np.abs(a[0]) > 0.0

@@ -215,8 +215,9 @@ def test_port_checkpoint_round_trip(tmp_path):
 
 def test_factory_selection():
     """EDC and PaSR are built from CombustionProperties as the JAX factory
-    builds them; unported models raise NotImplementedError naming their
-    ROADMAP item; the LES models the port has are built; the density-based
+    builds them; the LES models are built; the three RAS models equal the
+    JAX factory's field by field and an unknown one raises ValueError; the
+    density-based
     solver's config is the JAX factory's for two case dictionaries."""
     C = tconfig
     mech = tc_chem.load_mechanism(MECH, device="cpu")
@@ -240,9 +241,23 @@ def test_factory_selection():
             turbulence=C.TurbulenceProperties(simulation_type="LES",
                                               les_model=les, Pr_t=0.9)))
         assert turb.Pr_t == 0.9 and turb.kind == les
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the RAS models: JAX's model, field by field (the SST model's y is
+    # None from the factory in both)
+    for ras in ("kEpsilon", "RNGkEpsilon", "kOmegaSST"):
+        kw = dict(simulation_type="RAS", ras_model=ras, Pr_t=0.9, Sc_t=0.8)
+        got = tfactory.build_turbulence(C.CaseConfig(
+            turbulence=C.TurbulenceProperties(**kw)))
+        ref = jfactory.build_turbulence(jconfig.CaseConfig(
+            turbulence=jconfig.TurbulenceProperties(**kw)))
+        assert type(got).__name__ == type(ref).__name__
+        assert [f.name for f in dataclasses.fields(got)] == \
+            [f.name for f in dataclasses.fields(ref)]
+        for f in dataclasses.fields(ref):
+            assert getattr(got, f.name) == getattr(ref, f.name), (ras, f.name)
+    with pytest.raises(ValueError, match="kOmega"):
         tfactory.build_turbulence(C.CaseConfig(
-            turbulence=C.TurbulenceProperties(simulation_type="RAS")))
+            turbulence=C.TurbulenceProperties(simulation_type="RAS",
+                                              ras_model="kOmega")))
     # the density-based solver: the JAX factory's config, field by field
     b = ((tmesh.zero_gradient(), tmesh.zero_gradient()),) * 3
     bj = ((jzg(), jzg()),) * 3
