@@ -18,9 +18,11 @@ toolkit (nvcc). In order:
    counts the chemistry launches it with, and at n = 54 (gri30's size) in
    both types, beside the device time of an empty kernel's launch; the
    stencil at the structured jet's (9, 128, 64, 64) and the aachenBomb's
-   (1, 3 and 9 lanes of 41 x 100 x 41) with the boundary coefficients
-   zeroed, and the Helmholtz operator on the jet's mesh, on every level of
-   its multigrid hierarchy and on the chamber's mesh;
+   (1, 3 and 9 lanes of 41 x 100 x 41) and the plan jet's lattice pressure
+   (1, 128, 64, 64) with the boundary coefficients zeroed, the Helmholtz
+   operator on the jet's mesh, on every level of its multigrid hierarchy
+   and on the chamber's mesh, and the ELL SpMV on the blockMesh jet's and
+   the blockMesh chamber's connectivity;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case, the face-list jet, the
@@ -112,7 +114,29 @@ toolkit (nvcc). In order:
    warm-up and 5 timed steps (gj_inverse must launch), the cloud's and the
    chemistry split's shares of one more step, gj_inverse at the split's
    lanes;
-13. prints its total seconds, the card line, one JSON line of kernel
+13. the face-list backend's paths, each with float64 gates first (in
+   worker processes, 2 steps) and then 2 warm-up and timed steps (2 on the
+   jet, FL_STEPS on the others) in float32 with the launch counts set to 0
+   just before and read just after:
+   - fljet: the structured jet on shift-plan meshes
+     (deepflame_torch.cases.jet_flame_3d_les_plan) at 128 x 64 x 64;
+     gates at 16 x 8 x 8: card against CPU, plan against no plan, and its
+     deviation from the structured jet equal on the card and the CPU;
+     stencil7_apply and gj_inverse must launch, ell_matvec must not; then
+     the AMG setup and one step with AMG beside one with Jacobi;
+   - hsfl: the detonation channel on plan meshes at 2000 x 100
+     (cases.detonation_2d_h2_fl); gates at 64 x 8: card against CPU
+     (1e-8) and against the structured step (5e-3); gj_inverse must launch;
+   - fgmfl: the Sandia D jet on plan meshes at 1024 x 512 with RNG
+     k-epsilon and a DeepFGM distilled on the card by train_deep_fgm
+     (cases.sandia_d_fgm_2d_fl); gates at 96 x 48: card against CPU with
+     and without RAS and against the structured FGM step; stencil7_apply
+     must launch;
+   - sprayfl: the aachenBomb chamber as a blockMesh hex block at 41 x 100 x
+     41 (cases.aachen_bomb_3d_fl: kEpsilon with wall functions, the cloud
+     on an overlay grid); gate at 11 x 20 x 11, the CPU replaying the
+     card's draws; ell_matvec must launch, gj_inverse must not;
+14. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -281,9 +305,10 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def phase_kernels(torch, K, jet_conn) -> dict:
+def phase_kernels(torch, K, jet_conn, chamber_conn) -> dict:
     """Each kernel against its plain version at main-path shapes; jet_conn:
-    the face-list jet's ELL connectivity (its solver's p_ell)."""
+    the face-list jet's ELL connectivity (its solver's p_ell);
+    chamber_conn: the face-list aachenBomb chamber's."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -309,6 +334,12 @@ def phase_kernels(torch, K, jet_conn) -> dict:
                                          AACHEN_NXZ), True)
         print("stencil7_apply at the aachenBomb's shape: " + json.dumps(row))
         out["stencil7_apply"]["spray_shapes"].append(row)
+    # the plan jet's lattice pressure CG: one lane of 128 x 64 x 64, closed
+    # walls (the coefficients across a boundary zero); its V/V_mean row
+    # scaling is 1 on the uniform box, so the coefficients are as drawn
+    row = _stencil_row(torch, K, g, (1, 2 * N_JET, N_JET, N_JET), True)
+    print("stencil7_apply at the plan jet's pressure shape: " + json.dumps(row))
+    out["stencil7_apply"]["fljet_pressure_shape"] = row
 
     # --- Helmholtz: the pressure operator at 96^3, float32, main-path
     # spacing; then the structured jet's 128 x 64 x 64 and each level of its
@@ -331,6 +362,9 @@ def phase_kernels(torch, K, jet_conn) -> dict:
     out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
     out["ell_matvec"] = _ell_figures(torch, K, g, jet_conn)
+    row = _ell_figures(torch, K, g, chamber_conn)
+    print("ell_matvec at the face-list chamber's shape: " + json.dumps(row))
+    out["ell_matvec"]["chamber_shape"] = row
     for name, f in out.items():
         print(f"{name}: kernel {f['ms']:.4f} ms on the device "
               f"({f['call_ms']:.4f} ms per wrapper call back to back), "
@@ -750,6 +784,7 @@ PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
                 "fl": ("ell_matvec", "gj_inverse"),
                 "sjet": ("stencil7_apply", "helmholtz7_apply", "gj_inverse")}
 STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT, "sjet": JET_DT,
+           "fljet": JET_DT,
            "sjet-pasr": JET_DT}
 
 
@@ -2436,6 +2471,482 @@ def phase_mist(torch, K):
     return counts, ms
 
 
+
+# ------------------------------------------- the face-list backend's paths
+
+FL_STEPS = 5                 # timed steps of hsfl, fgmfl and sprayfl
+FL_FIELDS = ("p", "T", "rho", "ha", "Y")
+FGMFL_FIELDS = ("rho", "p", "Z", "Zvar", "c", "cvar", "T", "He", "k", "eps")
+
+
+def _flat_np(a):
+    """A structured field as flat cells, components last (numpy)."""
+    if a.ndim == 3:
+        return a.reshape(-1)
+    return a.reshape(a.shape[0], -1).T
+
+
+def _flat_fields(d: dict) -> dict:
+    return {k: (tuple(_flat_np(x) for x in v) if isinstance(v, tuple)
+                else _flat_np(v)) for k, v in d.items()}
+
+
+def _without_plan(solver):
+    """The solver with every FaceListMesh's shift plan taken away (gathers,
+    ELL sums and the index-form matvec)."""
+    from deepflame_torch.mesh.facelist import FaceListMesh
+    nop = lambda m: dataclasses.replace(m, plan=None)
+    kw = {}
+    for f in dataclasses.fields(solver):
+        v = getattr(solver, f.name)
+        if isinstance(v, FaceListMesh):
+            kw[f.name] = nop(v)
+        elif f.name == "m_U":
+            kw[f.name] = tuple(nop(m) for m in v)
+        elif f.name == "m_Y_groups" and v is not None:
+            kw[f.name] = tuple((nop(m), g) for m, g in v)
+    return dataclasses.replace(solver, **kw)
+
+
+def _fljet_gate_case(dev: str, which: str):
+    """The jet at n = 8 (16 x 8 x 8 cells) in float64 after 2 steps of
+    JET_DT on `dev` (a worker): `which` is "plan" (jet_flame_3d_les_plan),
+    "noplan" (the same meshes without their plans) or "sjet" (the
+    structured jet_flame_3d_les). Returns (flat fields, pressure
+    iterations of the last step)."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import jet_flame_3d_les, jet_flame_3d_les_plan
+    if which == "sjet":
+        solver, s = jet_flame_3d_les(MECH, n=8, dtype=torch.float64,
+                                     device=dev)
+    else:
+        solver, s = jet_flame_3d_les_plan(MECH, n=8, dtype=torch.float64,
+                                          device=dev)
+        if which == "noplan":
+            solver = _without_plan(solver)
+    for _ in range(2):
+        s, diag = solver.step(s, JET_DT)
+    out = _as_numpy(s, FL_FIELDS + ("U",))
+    return (_flat_fields(out) if which == "sjet" else out,
+            int(diag["iters_p"]))
+
+
+def _fl_timed(torch, K, solver, state, dt, warm, steps, label, n_cells):
+    """`warm` warm-up and `steps` timed steps (launch counts set to 0 just
+    before, read just after), printed: ms/step, cell-updates/s, peak
+    memory, launches per step. Returns (state, diag, counts, ms/step)."""
+    for i in range(warm):
+        t0 = time.perf_counter()
+        state, diag = solver.step(state, dt)
+        torch.cuda.synchronize()
+        print(f"{label} warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    state, diag, counts, wall = _timed_steps(torch, K, solver, state, dt,
+                                             steps)
+    ms = wall / steps * 1e3
+    print(f"{label} path counts over {steps} steps: {json.dumps(counts)}; "
+          f"per step " + json.dumps({k: v / steps for k, v in counts.items()}))
+    print(f"{label} path: {ms:.2f} ms/step, "
+          f"{n_cells / (wall / steps):.4e} cell-updates/s ({n_cells} cells), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{label} diagnostics of the last step: " + json.dumps(
+        {k: float(v) for k, v in diag.items()}))
+    return state, diag, counts, ms
+
+
+def phase_fljet(torch, K):
+    """The structured jet on the face-list backend with shift plans
+    (deepflame_torch.cases.jet_flame_3d_les_plan). Gates first, in worker
+    processes, in float64 at n = 8 (16 x 8 x 8), 2 steps: the plan step on
+    the card against the plan step on the CPU and against the same meshes
+    without their plans on the card (every field within 1e-8 of its
+    largest value, U 1e-6); and its deviation from the structured step
+    (jet_flame_3d_les) on the card equal, within 1e-8, to the same
+    deviation on the CPU path (the JAX package's two backends disagree as
+    much at the jet's inlet profiles, ROADMAP section C). Then 128 x 64 x
+    64 in float32, dt 5e-7 s, 2 warm-up and 2 timed steps: stencil7_apply
+    and gj_inverse must launch, ell_matvec must not. Then the AMG setup of
+    its pressure mesh, timed, and one step of the timed state with the
+    AMG-preconditioned pressure CG beside one with Jacobi: fewer pressure
+    iterations, and p, rho and T apart by no more than 2 p_rel_tol of the
+    step's change (each CG stops within p_rel_tol of its initial residual).
+    Returns (launch counts of the timed steps, ms/step)."""
+    from deepflame_torch.cases import jet_flame_3d_les_plan
+    from deepflame_torch.ops.amg_fl import make_amg_fl
+    t0 = time.perf_counter()
+    with _pool(5) as pool:
+        runs = {(dev, w): pool.submit(_fljet_gate_case, dev, w)
+                for dev, w in (("cuda", "plan"), ("cpu", "plan"),
+                               ("cuda", "noplan"), ("cuda", "sjet"),
+                               ("cpu", "sjet"))}
+        r = {k: v.result()[0] for k, v in runs.items()}
+    _field_gate(torch, "fljet n=8 float64, plan on the card vs the CPU",
+                r["cuda", "plan"], r["cpu", "plan"], FL_FIELDS, 1e-8,
+                ("U",), 1e-6)
+    _field_gate(torch, "fljet n=8 float64 on the card, plan vs no plan",
+                r["cuda", "plan"], r["cuda", "noplan"], FL_FIELDS, 1e-8,
+                ("U",), 1e-6)
+    devs = {}
+    for dev in ("cuda", "cpu"):
+        devs[dev] = {k: max_rel_err(torch, torch.as_tensor(r[dev, "sjet"][k]),
+                                    torch.as_tensor(r[dev, "plan"][k]))[1]
+                     for k in FL_FIELDS + ("U",)}
+    print("fljet n=8 float64, plan vs structured jet (largest deviation over "
+          "largest value): card " + json.dumps(devs["cuda"]) + ", CPU "
+          + json.dumps(devs["cpu"]))
+    for k in devs["cuda"]:
+        check(abs(devs["cuda"][k] - devs["cpu"][k]) <= 1e-8,
+              f"fljet: plan vs structured {k} differs on the card from the "
+              f"CPU path")
+    print(f"fljet gates: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    solver, state = jet_flame_3d_les_plan(MECH, n=N_JET, dtype=torch.float32,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    n_cells = state.T.numel()
+    print(f"fljet path: {2 * N_JET} x {N_JET} x {N_JET} float32 jet on "
+          f"from_structured meshes (shift plan {solver.m_p.plan.shape}, "
+          f"{solver.m_p.n_faces} interior faces, "
+          f"{len(solver.m_Y_groups)} species BC groups, "
+          f"{solver.combustion.n_bins} chemistry bins, dt {JET_DT:g} s), "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    T_before = state.T.clone()
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, JET_DT, 2,
+                                        STEPS, "fljet", n_cells)
+    check(counts["stencil7_apply"] > 0 and counts["gj_inverse"] > 0
+          and counts["ell_matvec"] == 0,
+          f"fljet: launches {counts} (stencil7_apply and gj_inverse must "
+          f"launch, ell_matvec must not)")
+    check(bool(torch.isfinite(state.T).all() and torch.isfinite(state.p).all()),
+          "fljet: non-finite T or p")
+    check(float((state.T - T_before).abs().max()) > 0.0, "fljet: T did not change")
+    check(float((state.Y.sum(1) - 1.0).abs().max()) < 1e-5,
+          "fljet: mass fractions do not sum to 1")
+    _breakdown_step(torch, solver, state, "fljet")
+
+    t0 = time.perf_counter()
+    amg = make_amg_fl(solver.m_p)
+    setup = time.perf_counter() - t0
+    print(f"fljet AMG setup at {n_cells} cells: {setup:.2f} s on the host, "
+          f"{len(amg.levels)} levels down to {amg.n_coarsest} cells")
+    out = {}
+    for label, sol in (("jacobi", solver),
+                       ("amg", dataclasses.replace(solver, p_mg=amg))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s1, d1 = sol.step(state, JET_DT)
+        torch.cuda.synchronize()
+        out[label] = (s1, int(d1["iters_p"]), time.perf_counter() - t1)
+    print(f"fljet one step from the timed state: Jacobi {out['jacobi'][1]} "
+          f"pressure iterations, {out['jacobi'][2] * 1e3:.2f} ms; AMG "
+          f"{out['amg'][1]}, {out['amg'][2] * 1e3:.2f} ms")
+    check(out["amg"][1] < out["jacobi"][1],
+          "fljet: AMG took no fewer pressure iterations than Jacobi")
+    # both CGs stop within p_rel_tol of the step's initial residual, so
+    # their p and rho may differ by up to that share of the step's change
+    tol = 2.0 * solver.config.p_rel_tol
+    for k in ("p", "rho", "T"):
+        a, b = getattr(out["amg"][0], k), getattr(out["jacobi"][0], k)
+        change = float((b - getattr(state, k)).abs().max())
+        dev = float((a - b).abs().max())
+        print(f"fljet AMG vs Jacobi {k}: largest deviation {dev:.3e} against "
+              f"the step's largest change {change:.3e} (bound "
+              f"{tol:g} of it)")
+        check(dev <= tol * change, f"fljet: AMG vs Jacobi {k} deviation "
+                                   f"{dev:.3e} > {tol:g} x {change:.3e}")
+    return counts, ms
+
+
+def _hsfl_gate_case(dev: str, which: str):
+    """The face-list detonation ("fl") or the structured one ("sjet") at
+    64 x 8 in float64 (igniters over the lower half), 2 steps on `dev` (a
+    worker): (flat fields, active lanes of the last step)."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import (detonation_2d_h2, detonation_2d_h2_fl,
+                                       detonation_dt)
+    build = detonation_2d_h2_fl if which == "fl" else detonation_2d_h2
+    solver, s = build(MECH, nx=64, ny=8, dtype=torch.float64, device=dev,
+                      igniters=((0.0, 0.05),))
+    for _ in range(2):
+        s, diag = solver.step(s, detonation_dt(solver))
+    out = _as_numpy(s, HS_FIELDS)
+    return (out if which == "fl" else _flat_fields(out)), diag["chem_lanes"]
+
+
+def phase_hsfl(torch, K):
+    """The 2D detonation channel on the face-list backend
+    (deepflame_torch.cases.detonation_2d_h2_fl, shift plan). Gates first,
+    in workers: 64 x 8 float64, 2 steps, the card against the CPU within
+    1e-8, and against the structured step (detonation_2d_h2) on the card
+    within 5e-3 (the JAX package's bound for its two backends, whose
+    boundary-adjacent gradient stencils differ). Then 2000 x 100 in float32
+    (HLLC, RK2, vanLeer, split chemistry), 2 warm-up and FL_STEPS timed
+    steps (gj_inverse must launch); the chemistry split timed inside one
+    more step. Returns (launch counts of the timed steps, ms/step)."""
+    from deepflame_torch.cases import detonation_2d_h2_fl, detonation_dt
+    from deepflame_torch.solvers.high_speed_fl import HighSpeedSolverFL
+    t0 = time.perf_counter()
+    with _pool(3) as pool:
+        runs = {k: pool.submit(_hsfl_gate_case, *k)
+                for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"))}
+        r = {k: v.result() for k, v in runs.items()}
+    _field_gate(torch, "hsfl 64 x 8 float64, 2 steps, card vs CPU",
+                r["cuda", "fl"][0], r["cpu", "fl"][0], HS_FIELDS, 1e-8)
+    _field_gate(torch, "hsfl 64 x 8 float64 on the card, face-list vs "
+                "structured", r["cuda", "fl"][0], r["cuda", "sjet"][0],
+                HS_FIELDS, 5e-3)
+    check(r["cuda", "fl"][1] > 0, "hsfl: no cell burned at 64 x 8")
+    print(f"hsfl gates: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    solver, state = detonation_2d_h2_fl(MECH, nx=HS_NX, ny=HS_NY,
+                                        dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    dt = detonation_dt(solver)
+    n_cells = state.T.numel()
+    print(f"hsfl path: {HS_NX} x {HS_NY} float32 detonation channel on "
+          f"from_structured meshes ({solver.config.flux}, RK"
+          f"{solver.config.rk_order}, {solver.config.limiter}, split "
+          f"chemistry), dt {dt:.6e} s, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, dt, 2,
+                                        FL_STEPS, "hsfl", n_cells)
+    check(counts["gj_inverse"] > 0, f"hsfl: gj_inverse was not launched: "
+                                    f"{counts}")
+    rho, U, p, T, _ = solver.primitives(state)
+    check(bool(torch.isfinite(T).all() and torch.isfinite(p).all()),
+          "hsfl: non-finite T or p")
+    check(float(T.max()) > 1500.0, "hsfl: the igniters went out")
+    total, spent = _timed_inside(torch, HighSpeedSolverFL, "_chemistry_split",
+                                 lambda: solver.step(state, dt))
+    print(f"hsfl breakdown step: {total * 1e3:.2f} ms, of which the "
+          f"chemistry split {spent[0] * 1e3:.2f} ms ({spent[0] / total:.3f})")
+    return counts, ms
+
+
+def _fgmfl_gate_case(dev: str, which: str):
+    """The Sandia D jet at 96 x 48 in float64 after 2 steps of 4e-6 s on
+    `dev` (a worker): "fl" the face-list form without RAS, "ras" with RNG
+    k-epsilon, "sjet" the structured FGMSolver. Flat fields."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import sandia_d_fgm_2d, sandia_d_fgm_2d_fl
+    if which == "sjet":
+        solver, s = sandia_d_fgm_2d(FGM_TABLE, nx=96, ny=48,
+                                    dtype=torch.float64, device=dev)
+    else:
+        solver, s = sandia_d_fgm_2d_fl(FGM_TABLE, nx=96, ny=48,
+                                       dtype=torch.float64, device=dev,
+                                       ras=which == "ras")
+    for _ in range(2):
+        s, _ = solver.step(s, 4e-6)
+    fields = FGM_FIELDS + ("U",) + (("k", "eps") if which == "ras" else ())
+    out = _as_numpy(s, fields)
+    return _flat_fields(out) if which == "sjet" else out
+
+
+def phase_fgmfl(torch, K):
+    """The Sandia D jet on the face-list backend
+    (deepflame_torch.cases.sandia_d_fgm_2d_fl, shift plan). Gates first, in
+    workers, 96 x 48 float64, 2 steps: without RAS, the card against the
+    CPU and against the structured FGMSolver on the card; with RNG
+    k-epsilon, the card against the CPU (every field within 1e-8, U 1e-6).
+    Then a DeepFGM distilled on the card from the table by train_deep_fgm
+    (its seconds, and Tf's RMS deviation from the table at 20,000 seeded
+    points), and FGM_NX x FGM_NY in float32 with RNG k-epsilon and the
+    DeepFGM manifold, 2 warm-up and FL_STEPS timed steps (stencil7_apply
+    must launch); the manifold reads and the RAS advance timed inside one
+    more step. Returns (launch counts of the timed steps, ms/step)."""
+    import numpy as np
+    from deepflame_torch.cases import sandia_d_fgm_2d_fl
+    from deepflame_torch.combustion.fgm import (lookup, read_flare_table,
+                                                train_deep_fgm)
+    from deepflame_torch.solvers.fgm_fl import FGMSolverFL
+    t0 = time.perf_counter()
+    with _pool(5) as pool:
+        runs = {k: pool.submit(_fgmfl_gate_case, *k)
+                for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"),
+                          ("cuda", "ras"), ("cpu", "ras"))}
+        r = {k: v.result() for k, v in runs.items()}
+    _field_gate(torch, "fgmfl 96 x 48 float64, 2 steps, card vs CPU",
+                r["cuda", "fl"], r["cpu", "fl"], FGM_FIELDS, 1e-8, ("U",),
+                1e-6)
+    _field_gate(torch, "fgmfl 96 x 48 float64 on the card, face-list vs "
+                "structured", r["cuda", "fl"], r["cuda", "sjet"], FGM_FIELDS,
+                1e-8, ("U",), 1e-6)
+    _field_gate(torch, "fgmfl 96 x 48 float64 RNG k-epsilon, card vs CPU",
+                r["cuda", "ras"], r["cpu", "ras"], FGM_FIELDS + ("k", "eps"),
+                1e-8, ("U",), 1e-6)
+    print(f"fgmfl gates: {time.perf_counter() - t0:.1f} s")
+
+    table = read_flare_table(FGM_TABLE, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = train_deep_fgm(table)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    ax = [np.asarray(table.axes[i]) for i in (1, 2, 3, 4)]
+    pts = [torch.as_tensor(rng.uniform(a.min(), a.max(), 20000),
+                           dtype=torch.float32, device="cuda") for a in ax]
+    T_nn = net.query(*pts)["Tf"]
+    T_tb = lookup(table, "Tf", (None, *pts, None))
+    rms = float(torch.sqrt(((T_nn - T_tb) ** 2).mean()) / T_tb.mean())
+    print(f"fgmfl DeepFGM: train_deep_fgm on the card (20,000 samples, 200 "
+          f"epochs, hidden 64-64-32) {train_s:.2f} s; Tf RMS deviation from "
+          f"the table {rms:.4f} of its mean at 20,000 seeded points")
+    check(math.isfinite(rms) and rms < 0.2, f"fgmfl: DeepFGM Tf RMS {rms}")
+
+    t0 = time.perf_counter()
+    solver, state = sandia_d_fgm_2d_fl(FGM_TABLE, nx=FGM_NX, ny=FGM_NY,
+                                       dtype=torch.float32, device="cuda",
+                                       ras=True, deepfgm=net, table=table)
+    torch.cuda.synchronize()
+    n_cells = state.T.numel()
+    print(f"fgmfl path: Sandia D {FGM_NX} x {FGM_NY} float32 on "
+          f"from_structured meshes, RNG k-epsilon (C1 {solver.C1}), the "
+          f"DeepFGM manifold, dt {FGM_DT:g} s, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    T_before = state.T.clone()
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, FGM_DT, 2,
+                                        FL_STEPS, "fgmfl", n_cells)
+    check(counts["stencil7_apply"] > 0, f"fgmfl: stencil7_apply was not "
+                                        f"launched: {counts}")
+    check(bool(torch.isfinite(state.T).all() and torch.isfinite(state.p).all()
+               and torch.isfinite(state.k).all()), "fgmfl: non-finite state")
+    check(float((state.T - T_before).abs().max()) > 0.0,
+          "fgmfl: T did not change")
+    check(float(state.k.min()) > 0.0 and 0.0 <= float(state.c.min())
+          and float(state.c.max()) <= 1.0, "fgmfl: k or c out of range")
+    total, spent = _timed_many(
+        torch, [(FGMSolverFL, "_lookup_state"), (FGMSolverFL, "_keps_advance")],
+        lambda: solver.step(state, FGM_DT))
+    spent = {k: sum(v) for k, v in spent.items()}
+    print(f"fgmfl breakdown step: {total * 1e3:.2f} ms; manifold reads "
+          f"{spent['_lookup_state'] * 1e3:.2f} ms "
+          f"({spent['_lookup_state'] / total:.3f}), RAS advance "
+          f"{spent['_keps_advance'] * 1e3:.2f} ms "
+          f"({spent['_keps_advance'] / total:.3f})")
+    return counts, ms
+
+
+SPRAYFL_FIELDS = ("rho", "U", "p", "ha", "Y", "T", "turb")
+
+
+def _sprayfl_gate_case(dev: str, draws=None):
+    """The face-list aachenBomb at 11 x 20 x 11 in float64 after 2 steps on
+    `dev` (a worker). On the card the cloud's draws are recorded; on the
+    CPU `draws` (the card's) are replayed. Returns (gas fields, the active
+    parcels' fields, the draws recorded, the active mask)."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import AACHEN_DT, aachen_bomb_3d_fl
+    log = []
+    if draws is None:
+        _recording_draws(log)
+    else:
+        _replaying_draws(torch, list(draws))
+    solver, s = aachen_bomb_3d_fl(MECH, n_xz=11, n_y=20, dtype=torch.float64,
+                                  device=dev)
+    for _ in range(2):
+        s, diag = solver.step(s, AACHEN_DT)
+    act = s.cloud.active.cpu().numpy() > 0
+    return (_as_numpy(s.gas, SPRAYFL_FIELDS),
+            {k: v[..., act] for k, v in
+             _as_numpy(s.cloud, PARCEL_FIELDS).items()}, log, act)
+
+
+def build_chamber(torch):
+    """The aachenBomb chamber's blockMesh (AACHEN_NXZ x AACHEN_NY x
+    AACHEN_NXZ, one hex block), timed: (GeneralMesh, ELL connectivity of
+    its pressure mesh)."""
+    from deepflame_torch.cases import AACHEN_WALLS, aachen_blockmesh_dict
+    from deepflame_torch.mesh import (build_blockmesh, parse_blockmesh_dict,
+                                      zero_gradient)
+    t0 = time.perf_counter()
+    gm = build_blockmesh(parse_blockmesh_dict(
+        aachen_blockmesh_dict(AACHEN_NXZ, AACHEN_NY)))
+    m = gm.with_bcs({w: zero_gradient() for w in AACHEN_WALLS},
+                    torch.float32, device="cuda")
+    conn = m.ell_connectivity()
+    print(f"sprayfl: blockMesh of the chamber, {gm.n_cells} cells and "
+          f"{gm.owner.shape[0]} interior faces, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return gm, conn
+
+
+def phase_sprayfl(torch, K, gm):
+    """The aachenBomb chamber on a general mesh
+    (deepflame_torch.cases.aachen_bomb_3d_fl: the blockMesh hex block, no
+    shift plan, kEpsilon with face-list wall functions, the cloud on an
+    overlay at the chamber's resolution). Gate first, in workers: 11 x 20
+    x 11 float64, 2 steps, the CPU replaying the card's draws: gas fields
+    and the active parcels within 1e-8 (the empty slots are evolved too,
+    but hold no droplets: their values are no result). Then AACHEN_NXZ x AACHEN_NY x AACHEN_NXZ in
+    float32 on `gm`, 2 warm-up and FL_STEPS timed steps, 50 parcels a step
+    (ell_matvec must launch; gj_inverse must not: the inert chamber's RK23
+    fast tier accepts every cell); the cloud's evolve, the RAS advance and
+    the chemistry timed inside one more step. Returns (launch counts of
+    the timed steps, ms/step)."""
+    from deepflame_torch.cases import AACHEN_DT, aachen_bomb_3d_fl
+    from deepflame_torch.combustion import Laminar
+    from deepflame_torch.lagrangian.overlay import OverlaySprayCloud
+    from deepflame_torch.solvers import LowMachSolverFL
+    t0 = time.perf_counter()
+    with _pool(2) as pool:
+        g_card, p_card, draws, act = pool.submit(_sprayfl_gate_case,
+                                                 "cuda").result()
+        g_cpu, p_cpu, _, act_cpu = pool.submit(_sprayfl_gate_case, "cpu",
+                                               draws).result()
+    check((act == act_cpu).all() and act.sum() > 0,
+          f"sprayfl gate: {act.sum()} parcels on the card, {act_cpu.sum()} "
+          f"on the CPU, or other slots")
+    _field_gate(torch, "sprayfl aachenBomb 11 x 20 x 11 float64, 2 steps "
+                f"({len(draws)} draws replayed on the CPU)", g_card, g_cpu,
+                SPRAYFL_FIELDS, 1e-8)
+    _field_gate(torch, f"sprayfl the {act.sum()} active parcels", p_card,
+                p_cpu, PARCEL_FIELDS, 1e-8)
+    print(f"sprayfl gate: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    solver, state = aachen_bomb_3d_fl(MECH, n_xz=AACHEN_NXZ, n_y=AACHEN_NY,
+                                      dtype=torch.float32, device="cuda",
+                                      mesh=gm)
+    torch.cuda.synchronize()
+    n_cells = state.gas.T.numel()
+    print(f"sprayfl path: aachenBomb {AACHEN_NXZ} x {AACHEN_NY} x "
+          f"{AACHEN_NXZ} float32 on the blockMesh mesh, kEpsilon with wall "
+          f"functions, overlay {solver.cloud.cloud.mesh.shape}, "
+          f"{solver.cloud.cloud.max_parcels} parcel slots, dt "
+          f"{AACHEN_DT:g} s, built in {time.perf_counter() - t0:.2f} s")
+    T_before = state.gas.T.clone()
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, AACHEN_DT, 2,
+                                        FL_STEPS, "sprayfl", n_cells)
+    check(counts["ell_matvec"] > 0 and counts["gj_inverse"] == 0,
+          f"sprayfl: launches {counts} (ell_matvec must launch, gj_inverse "
+          f"must not)")
+    g = state.gas
+    iv = solver.fuel_index
+    n_act = int(state.cloud.active.sum())
+    check(bool(torch.isfinite(g.T).all() and torch.isfinite(g.p).all()
+               and all(torch.isfinite(t).all() for t in g.turb)),
+          "sprayfl: non-finite gas state")
+    check(float((g.T - T_before).abs().max()) > 0.0, "sprayfl: T did not change")
+    check(n_act > 0 and float(g.Y[:, iv].max()) > 0.0,
+          "sprayfl: no parcels, or no vapour in the gas")
+    check(float(g.turb[0].min()) > 0.0, "sprayfl: k not positive")
+    print(f"sprayfl state: {n_act} active parcels, k_max "
+          f"{float(diag['k_max']):.6f}, max Y_H2O "
+          f"{float(g.Y[:, iv].max()):.6e}")
+    total, spent = _timed_many(
+        torch, [(OverlaySprayCloud, "evolve"),
+                (LowMachSolverFL, "_keps_advance"), (Laminar, "correct")],
+        lambda: solver.step(state, AACHEN_DT))
+    spent = {k: sum(v) for k, v in spent.items()}
+    print(f"sprayfl breakdown step: {total * 1e3:.2f} ms; cloud evolve "
+          f"{spent['evolve'] * 1e3:.2f} ms ({spent['evolve'] / total:.3f}), "
+          f"RAS advance {spent['_keps_advance'] * 1e3:.2f} ms "
+          f"({spent['_keps_advance'] / total:.3f}), chemistry "
+          f"{spent['correct'] * 1e3:.2f} ms ({spent['correct'] / total:.3f})")
+    return counts, ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2445,7 +2956,8 @@ def main() -> int:
                          "extension")
     ap.add_argument("--phases", metavar="LIST",
                     help="run only these of tci, sjet-pasr, sjet-edc, "
-                         "light, hs, fgm, spray and mist (comma-separated; "
+                         "light, hs, fgm, spray, mist, fljet, hsfl, fgmfl "
+                         "and sprayfl (comma-separated; "
                          "light needs tci and sjet-pasr; spray and mist run "
                          "their gates first) after the build, and end "
                          "without the result lines")
@@ -2512,14 +3024,27 @@ def main() -> int:
         if "mist" in only:
             phase_mist(torch, K)
             phase_done("mist")
+        if "fljet" in only:
+            phase_fljet(torch, K)
+            phase_done("fljet")
+        if "hsfl" in only:
+            phase_hsfl(torch, K)
+            phase_done("hsfl")
+        if "fgmfl" in only:
+            phase_fgmfl(torch, K)
+            phase_done("fgmfl")
+        if "sprayfl" in only:
+            phase_sprayfl(torch, K, build_chamber(torch)[0])
+            phase_done("sprayfl")
         print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
               f"phase {json.dumps(seconds)}")
         print(card)
         return 0
 
     jet = build_jet(torch, N_JET)
+    chamber, chamber_conn = build_chamber(torch)
     phase_done("build")
-    figures = phase_kernels(torch, K, jet[0].p_ell)
+    figures = phase_kernels(torch, K, jet[0].p_ell, chamber_conn)
     phase_done("kernels")
     phase_reference(torch, K)
     phase_done("reference")
@@ -2563,6 +3088,14 @@ def main() -> int:
     phase_done("spray")
     counts["mist"], ms["mist"] = phase_mist(torch, K)
     phase_done("mist")
+    counts["fljet"], ms["fljet"] = phase_fljet(torch, K)
+    phase_done("fljet")
+    counts["hsfl"], ms["hsfl"] = phase_hsfl(torch, K)
+    phase_done("hsfl")
+    counts["fgmfl"], ms["fgmfl"] = phase_fgmfl(torch, K)
+    phase_done("fgmfl")
+    counts["sprayfl"], ms["sprayfl"] = phase_sprayfl(torch, K, chamber)
+    phase_done("sprayfl")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

@@ -10,7 +10,13 @@ flareFGM solver's 2D Sandia D jet (`sandia_d_fgm_2d`,
 examples/sandia_d_fgm_2d.py); the spray solvers' 3D aachenBomb chamber
 (`aachen_bomb_3d`, examples/aachen_bomb_3d.py, kEpsilon RAS) and the 1D
 water-mist detonation (`watermist_detonation_1d`,
-examples/detonation_1d_watermist.py).
+examples/detonation_1d_watermist.py); and the face-list forms of four of
+them: the structured jet on its shift-plan mesh
+(`jet_flame_3d_les_plan`), the detonation channel and the Sandia D jet on
+theirs (`detonation_2d_h2_fl`, `sandia_d_fgm_2d_fl`, the latter with RNG
+k-epsilon), and the aachenBomb chamber as a blockMesh hex block with the
+cloud on an overlay grid (`aachen_bomb_3d_fl`, kEpsilon with wall
+functions).
 
 Each returns (solver, state) on `device` (default: the CUDA card); the Sod
 tube also its run plan.
@@ -31,12 +37,18 @@ from .combustion import DNNChemistry, Laminar
 from .constants import GAS_CONSTANT
 from .lagrangian.cloud import ConeInjector, ManualInjector, SprayCloud
 from .lagrangian.liquids import water
+from .lagrangian.overlay import OverlaySprayCloud
 from .mesh import (StructuredMesh, build_blockmesh, cyclic, empty, fixed_value,
                    parse_blockmesh_dict, symmetry, zero_gradient)
+from .mesh.facelist import from_structured
+from .ops.amg_fl import make_amg_fl
 from .solvers import LowMachConfig, LowMachSolver, LowMachSolverFL
 from .solvers.high_speed import HighSpeedConfig, HighSpeedSolver
-from .solvers.spray import HighSpeedSpraySolver, SpraySolver
+from .solvers.high_speed_fl import HighSpeedFLState, HighSpeedSolverFL
+from .solvers.low_mach_fl import rng_keps_kwargs
+from .solvers.spray import HighSpeedSpraySolver, SprayFLSolver, SpraySolver
 from .turbulence import KEpsilon, sigma_model
+from .turbulence.wall_functions_fl import make_wall_functions_fl
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
@@ -44,7 +56,9 @@ __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "jet_with_combustion", "jet_function_objects", "jet_fields",
            "detonation_2d_h2", "detonation_dt", "sod_shock_tube",
            "sandia_d_fgm_2d", "AACHEN_FLOW_PROFILE", "AACHEN_DT",
-           "aachen_bomb_3d", "watermist_detonation_1d"]
+           "aachen_bomb_3d", "watermist_detonation_1d",
+           "jet_flame_3d_les_plan", "detonation_2d_h2_fl",
+           "sandia_d_fgm_2d_fl", "aachen_blockmesh_dict", "aachen_bomb_3d_fl"]
 
 
 def _fresh_mixture(mech):
@@ -477,8 +491,11 @@ def detonation_2d_h2(mech_path: str, nx: int = 2000, ny: int = 100,
 
 
 def detonation_dt(solver, cfl: float = 0.3, a_bound: float = 3200.0) -> float:
-    """The detonation's step: cfl dx / a_bound (examples/detonation_2d.py)."""
-    return cfl * solver.mesh.dx / a_bound
+    """The detonation's step: cfl dx / a_bound (examples/detonation_2d.py).
+    On the face-list channel dx is the first x face's spacing."""
+    m = solver.mesh
+    dx = m.dx if hasattr(m, "dx") else float(m.delta[0])
+    return cfl * dx / a_bound
 
 
 def sod_shock_tube(mech_path: str, n: int = 400, flux: str = "HLLC",
@@ -515,7 +532,7 @@ def sod_shock_tube(mech_path: str, n: int = 400, flux: str = "HLLC",
 
 def sandia_d_fgm_2d(table_path: str, nx: int = 96, ny: int = 48,
                     dtype=torch.float32, device=None, deepfgm=None,
-                    use_native: bool = True):
+                    use_native: bool = True, table=None):
     """2D Sandia-flame-D-family jet on the flareFGM solver
     (examples/sandia_d_fgm_2d.py; the reference's twoD_SandiaD_flareFGM) on
     a FlaRe table (data/flare_CH4_drm19_SandiaD_4D.tbl and its .json with
@@ -526,12 +543,13 @@ def sandia_d_fgm_2d(table_path: str, nx: int = 96, ny: int = 48,
     inlet profiles decaying in x. Upwind convection, cvar transported, no
     species chemistry. `deepfgm`: a DeepFGM for the state lookups (the
     table still gives cOc and the enthalpy). The example's step is 4e-6 s
-    at 96 x 48."""
+    at 96 x 48. `table`: the FlameletTable when the caller has read it."""
     import json
     from .combustion.fgm import read_flare_table
     from .solvers.fgm import FGMConfig, FGMSolver
-    table = read_flare_table(table_path, dtype=dtype, use_native=use_native,
-                             device=device)
+    if table is None:
+        table = read_flare_table(table_path, dtype=dtype,
+                                 use_native=use_native, device=device)
     with open(table_path + ".json") as f:
         Z_st = json.load(f)["Z_st"]
     Lx, Ly = 0.12, 0.06
@@ -707,3 +725,180 @@ def watermist_detonation_1d(mech_path: str, n: int = 700,
     Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
     Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
     return solver, solver.initial_state(p, T, Y.contiguous())
+
+
+# ------------------------------------------------- face-list forms
+
+def _flat_cells(x):
+    """A structured (..., nx, ny, nz) field as flat cells, components last:
+    (n,) or (n, k)."""
+    if x.dim() == 3:
+        return x.reshape(-1)
+    return x.reshape(x.shape[0], -1).T.contiguous()
+
+
+def jet_flame_3d_les_plan(mech_path: str, n: int = 64, dtype=torch.float32,
+                          device=None, p_mg: bool = False):
+    """The structured jet (`jet_flame_3d_les`, (2n, n, n) cells) on the
+    face-list backend with a shift plan: from_structured over its box and
+    its per-field BCs (the inlet profiles per face), the species in BC
+    groups (H2), (O2), (N2) and the six zero-inlet species, the same
+    thermo, Laminar stiff chemistry and Sigma model, and its initial state
+    as flat cells. Every Krylov matvec is the lattice stencil; `p_mg`
+    preconditions the pressure CG with the aggregation AMG
+    (ops.amg_fl.make_amg_fl) in place of Jacobi."""
+    st, s0 = jet_flame_3d_les(mech_path, n=n, dtype=dtype, device=device)
+    mesh, dev = st.mesh, st.mesh.device
+    fl = lambda bcs: from_structured(mesh, bcs, dtype, device=dev)
+    mech = load_mechanism(mech_path, device="cpu")
+    si = mech.species_index
+    ns = mech.n_species
+    iH2, iO2, iN2 = si("H2"), si("O2"), si("N2")
+    groups = [(iH2,), (iO2,), (iN2,),
+              tuple(i for i in range(ns) if i not in (iH2, iO2, iN2))]
+    m_Y_groups = tuple((fl(st.bcs_Y[g[0]]), g) for g in groups)
+    m_p = fl(st.bcs_p)
+    solver = LowMachSolverFL(
+        m_p=m_p, m_h=fl(st.bcs_h), m_Y=m_Y_groups[-1][0],
+        m_rho=fl(st.bcs_rho), m_U=tuple(fl(b) for b in st.bcs_U),
+        thermo=st.thermo, transport=st.transport, combustion=st.combustion,
+        config=st.config, m_Y_groups=m_Y_groups,
+        p_mg=make_amg_fl(m_p) if p_mg else None, les=st.turbulence)
+    return solver, solver.initial_state(
+        _flat_cells(s0.p), _flat_cells(s0.T), _flat_cells(s0.Y),
+        _flat_cells(s0.U))
+
+
+def detonation_2d_h2_fl(mech_path: str, nx: int = 2000, ny: int = 100,
+                        dtype=torch.float32, device=None,
+                        igniters=DETONATION_IGNITERS):
+    """The 2D H2-air detonation channel (`detonation_2d_h2`) on the
+    face-list backend: from_structured over its box and per-field BCs (a
+    shift plan), HighSpeedSolverFL with the same configuration (HLLC, RK2,
+    vanLeer, split ODE chemistry), its initial state as flat cells. Step:
+    `detonation_dt(solver)` (the mesh spacing is the structured box's, 2 m
+    / nx)."""
+    st, s0 = detonation_2d_h2(mech_path, nx=nx, ny=ny, dtype=dtype,
+                              device=device, igniters=igniters)
+    mesh = st.mesh
+    fl = lambda bcs: from_structured(mesh, bcs, dtype, device=mesh.device)
+    solver = HighSpeedSolverFL(
+        m_rho=fl(st.bcs_rho), m_p=fl(st.bcs_p), m_Y=fl(st.bcs_Y),
+        m_U=tuple(fl(b) for b in st.bcs_U), thermo=st.thermo,
+        kinetics=st.kinetics, config=st.config)
+    return solver, HighSpeedFLState(
+        rho=_flat_cells(s0.rho), rhoU=_flat_cells(s0.rhoU),
+        rhoE=_flat_cells(s0.rhoE), rhoY=_flat_cells(s0.rhoY),
+        T=_flat_cells(s0.T), time=s0.time)
+
+
+def sandia_d_fgm_2d_fl(table_path: str, nx: int = 96, ny: int = 48,
+                       dtype=torch.float32, device=None, ras: bool = True,
+                       deepfgm=None, use_native: bool = True, table=None):
+    """The Sandia D jet (`sandia_d_fgm_2d`) on the face-list backend:
+    from_structured over its slab and per-field BCs (a shift plan),
+    FGMSolverFL with the same table (or `deepfgm`) and configuration (every
+    control scalar with Z's BCs, as the structured solver has them), and
+    with `ras` RNG k-epsilon (rng_keps_kwargs(C1=1.52), the reference
+    case's setting; k, eps zeroGradient, starting at 1e-3 and 1e-2). Its
+    initial state as flat cells. `table`: the FlameletTable when the caller
+    has read it."""
+    from .solvers.fgm_fl import FGMSolverFL
+    st, s0 = sandia_d_fgm_2d(table_path, nx=nx, ny=ny, dtype=dtype,
+                             device=device, deepfgm=deepfgm,
+                             use_native=use_native, table=table)
+    mesh = st.mesh
+    fl = lambda bcs: from_structured(mesh, bcs, dtype, device=mesh.device)
+    # every control scalar (and He) with the BCs of Z, as the structured
+    # solver transports them
+    m_Z = fl(st.bcs_Z)
+    ras_kw = {}
+    if ras:
+        m_ke = fl(st.bcs_h)                # zeroGradient all round
+        ras_kw = dict(m_k=m_ke, m_eps=m_ke, **rng_keps_kwargs(C1=1.52))
+    solver = FGMSolverFL(
+        m_p=fl(st.bcs_p), m_h=m_Z, m_Y=m_Z, m_rho=fl(st.bcs_rho),
+        m_U=tuple(fl(b) for b in st.bcs_U), thermo=None, transport=None,
+        combustion=None, config=st.config, table=st.table, m_c=m_Z,
+        m_var=m_Z, deepfgm=deepfgm, **ras_kw)
+    return solver, solver.fgm_initial_state(
+        _flat_cells(s0.p), _flat_cells(s0.Z), _flat_cells(s0.c),
+        _flat_cells(s0.U))
+
+
+_AACHEN_BLOCKMESH = """
+convertToMeters 0.001;
+vertices
+(
+    (-10 0 -10) (10 0 -10) (10 100 -10) (-10 100 -10)
+    (-10 0 10) (10 0 10) (10 100 10) (-10 100 10)
+);
+blocks
+(
+    hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 1 1)
+);
+boundary
+(
+    xlo {{ type wall; faces ((0 4 7 3)); }}
+    xhi {{ type wall; faces ((1 2 6 5)); }}
+    ylo {{ type wall; faces ((0 1 5 4)); }}
+    yhi {{ type wall; faces ((3 7 6 2)); }}
+    zlo {{ type wall; faces ((0 3 2 1)); }}
+    zhi {{ type wall; faces ((4 5 6 7)); }}
+);
+"""
+AACHEN_WALLS = ("xlo", "xhi", "ylo", "yhi", "zlo", "zhi")
+
+
+def aachen_blockmesh_dict(n_xz: int = 41, n_y: int = 100) -> str:
+    """blockMeshDict of the aachenBomb chamber: one hex block of 20 x 100 x
+    20 mm, n_xz x n_y x n_xz cells, six wall patches."""
+    return _AACHEN_BLOCKMESH.format(nx=n_xz, ny=n_y, nz=n_xz)
+
+
+def aachen_bomb_3d_fl(mech_path: str, n_xz: int = 41, n_y: int = 100,
+                      liquid: str = "water", dtype=torch.float32, device=None,
+                      mesh=None):
+    """The aachenBomb chamber (`aachen_bomb_3d`) on a general mesh: the
+    blockMeshDict of `aachen_blockmesh_dict` (no shift plan: its pressure
+    CG runs through ell_matvec), LowMachSolverFL with kEpsilon and
+    face-list wall functions on the six walls, and the same cone injector
+    and cloud on an overlay grid at the chamber's own resolution and
+    bounds (so the cloud sees the structured grid). SprayFLSolver and its
+    initial state (k0 1, eps0 90, the cloud's draws from a generator
+    seeded with 0). Step AACHEN_DT. `mesh`: the GeneralMesh of that dict,
+    when the caller has built it."""
+    st, _ = aachen_bomb_3d(mech_path, n_xz=n_xz, n_y=n_y, liquid=liquid,
+                           dtype=dtype, device=device)
+    gas = st.gas_solver
+    dev = gas.mesh.device
+    gm = mesh if mesh is not None else build_blockmesh(
+        parse_blockmesh_dict(aachen_blockmesh_dict(n_xz, n_y)))
+    zg, u0 = zero_gradient(), fixed_value(0.0)
+    mk = lambda bc: gm.with_bcs({w: bc for w in AACHEN_WALLS}, dtype,
+                                device=dev)
+    m_s = mk(zg)
+    m_u = mk(u0)
+    gas_fl = LowMachSolverFL(
+        m_p=m_s, m_h=m_s, m_Y=m_s, m_rho=m_s, m_U=(m_u, m_u, m_u),
+        thermo=gas.thermo, transport=gas.transport,
+        combustion=gas.combustion, config=gas.config, m_k=m_s, m_eps=m_s,
+        wall_fns=make_wall_functions_fl(gm, AACHEN_WALLS, dtype, device=dev),
+        p_ell=m_s.ell_connectivity())
+    c = st.cloud
+    cloud = OverlaySprayCloud.build(
+        gm.centers, gm.volumes, dict(
+            liquid=c.liquid, injector=c.injector, max_parcels=c.max_parcels,
+            evaporation=c.evaporation, breakup=c.breakup,
+            wall_interaction=c.wall_interaction),
+        resolution=(n_xz, n_y, n_xz),
+        bounds=((-0.01, 0.0, -0.01), (0.01, 0.1, 0.01)), device=dev)
+    solver = SprayFLSolver(gas_solver=gas_fl, cloud=cloud,
+                           fuel_index=st.fuel_index)
+    mech = load_mechanism(mech_path, device="cpu")
+    Y = np.zeros((gm.n_cells, mech.n_species))
+    Y[:, mech.species_index("O2")] = 0.23
+    Y[:, mech.species_index("N2")] = 0.77
+    n = gm.n_cells
+    return solver, solver.initial_state(
+        np.full(n, 5e6), np.full(n, 800.0), Y, k0=1.0, eps0=90.0)

@@ -15,12 +15,16 @@ from .chemistry.dnn import DFODENet
 from .combustion.fgm import DeepFGM, FlameletTable
 from .chemistry.mechanism import MECHANISM_ARRAYS, Mechanism
 from .device import resolve_device
+from .solvers.fgm_fl import FGMFLState
+from .solvers.high_speed_fl import HighSpeedFLState
 from .solvers.low_mach import LowMachState
 from .solvers.low_mach_fl import LowMachFLState
+from .solvers.spray import SprayFLState
 
 __all__ = ["mechanism_from_numpy", "state_from_numpy", "fl_state_from_numpy",
-           "dfodenet_from_numpy", "flamelet_table_from_numpy",
-           "deep_fgm_from_numpy"]
+           "hs_fl_state_from_numpy", "fgm_fl_state_from_numpy",
+           "spray_fl_state_from_numpy", "dfodenet_from_numpy",
+           "flamelet_table_from_numpy", "deep_fgm_from_numpy"]
 
 
 def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
@@ -56,8 +60,9 @@ def fl_state_from_numpy(d: dict, dtype=torch.float64,
                         device=None) -> LowMachFLState:
     """LowMachFLState from a dict of numpy fields of a face-list state: rho,
     U (n, 3), p, ha, Y (n, ns), T, dpdt, time, phi (nf,), phi_b (sequence of
-    per-patch arrays) and optionally chem_dt (absent, None or empty when
-    chemistry is off, as the JAX package's `()`)."""
+    per-patch arrays), optionally chem_dt (absent, None or empty when
+    chemistry is off, as the JAX package's `()`) and turb (the RAS (k, eps),
+    absent or empty without RAS)."""
     device = resolve_device(device)
     f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
     chem_dt = d.get("chem_dt")
@@ -67,7 +72,36 @@ def fl_state_from_numpy(d: dict, dtype=torch.float64,
         rho=f(d["rho"]), U=f(d["U"]), p=f(d["p"]), ha=f(d["ha"]), Y=f(d["Y"]),
         T=f(d["T"]), phi=f(d["phi"]), phi_b=tuple(f(x) for x in d["phi_b"]),
         dpdt=f(d["dpdt"]), time=f(d["time"]),
-        chem_dt=None if chem_dt is None else f(chem_dt))
+        chem_dt=None if chem_dt is None else f(chem_dt),
+        turb=tuple(f(x) for x in d.get("turb", ())))
+
+
+def hs_fl_state_from_numpy(d: dict, dtype=torch.float64,
+                           device=None) -> HighSpeedFLState:
+    """HighSpeedFLState from numpy fields: rho (n,), rhoU (n, 3), rhoE,
+    rhoY (n, ns), T and time."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return HighSpeedFLState(**{k: f(d[k]) for k in HighSpeedFLState._fields})
+
+
+def fgm_fl_state_from_numpy(d: dict, dtype=torch.float64,
+                            device=None) -> FGMFLState:
+    """FGMFLState from numpy fields: every field of the state, phi_b a
+    sequence of per-patch arrays."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return FGMFLState(**{k: (tuple(f(x) for x in d[k]) if k == "phi_b"
+                             else f(d[k])) for k in FGMFLState._fields})
+
+
+def spray_fl_state_from_numpy(gas: dict, cloud, dtype=torch.float64,
+                              device=None) -> SprayFLState:
+    """SprayFLState of a face-list gas state given as numpy fields (as
+    fl_state_from_numpy takes them) and a cloud state of the port (e.g.
+    OverlaySprayCloud.init's)."""
+    return SprayFLState(gas=fl_state_from_numpy(gas, dtype, device),
+                        cloud=cloud)
 
 
 def dfodenet_from_numpy(nets, x_mean, x_std, y_mean, y_std, delta_t: float,

@@ -1,10 +1,14 @@
 """Finite-volume operators over face-list connectivity.
 
-Port of deepflame_tpu/ops/fv_facelist.py for meshes without a shift plan
-(every mesh that mesh/blockmesh.py or mesh/polymesh.py builds): the discrete
-operators of ops/fv.py as gathers over owner/neighbour and ELL row sums.
-Equations are kept per unit volume (row_c = (1/V_c) sum_f ...), as on the
-structured backend.
+Port of deepflame_tpu/ops/fv_facelist.py: the discrete operators of
+ops/fv.py as gathers over owner/neighbour and ELL row sums on general meshes
+(mesh/blockmesh.py, mesh/polymesh.py), and as lattice slices on meshes with
+a shift plan (mesh.facelist.from_structured, graded_box), where interp,
+flux and gradient run per face family and every implicit matrix is a
+7-point stencil on the (nx, ny, nz) lattice (`FvMatrixFL.plan_stencil`,
+applied by `apply_stencil_lattice`: the `stencil7_apply` kernel on the
+card, its plain roll form on the CPU). Equations are kept per unit volume
+(row_c = (1/V_c) sum_f ...), as on the structured backend.
 
 Layouts. Explicit operators take fields cell-index first with any trailing
 batch, x (n_cells, ...) -> (nf, ...) or (n_cells, ..., 3), as the JAX
@@ -15,20 +19,20 @@ that shape, so one batched Krylov solve covers a group of species or the
 three velocity components (the JAX package vmaps the scalar solve).
 Boundary patch terms are segment sums over the patch owners, an index_add
 into zeros added afterwards, as the JAX package's segment_sum.
-
-Not in this slice: the shift-plan routes (`apply_stencil_lattice`,
-`FvMatrixFL.plan_stencil`), which wait with the ShiftPlan mesh layout.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-from ..mesh.facelist import FaceListMesh
-from .kernels import ell_matvec
+from ..mesh.facelist import (FaceListMesh, _fam_slice, _lat_index,
+                             _lattice_shape, _plan_segments)
+from .kernels import ell_matvec, stencil7_apply
 
-__all__ = ["FvMatrixFL", "interpolate_fl", "flux_normal_fl", "sngrad_fl",
+__all__ = ["FvMatrixFL", "apply_stencil_lattice", "lattice_operands",
+           "interpolate_fl", "flux_normal_fl", "sngrad_fl",
            "grad_fl", "grad_multi_fl", "div_flux_fl", "flux_of_fl",
            "fvm_ddt_fl", "fvm_div_fl", "fvm_laplacian_fl",
            "fvm_laplacian_corrected_fl", "fvm_source_implicit_fl",
@@ -55,15 +59,21 @@ def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int,
 
 def interpolate_fl(m: FaceListMesh, x: torch.Tensor) -> torch.Tensor:
     """Linear owner/neighbour face interpolation on interior faces:
-    x (n_cells, ...) -> (nf, ...)."""
+    x (n_cells, ...) -> (nf, ...); per face family on plan meshes."""
     x = m.exchange(x)
+    if m.plan is not None:
+        return m.plan_interp(x)
     w = _fcol(m.weights, x)
     return w * m.gather_own(x) + (1.0 - w) * m.gather_nei(x)
 
 
 def flux_normal_fl(m: FaceListMesh, q: torch.Tensor) -> torch.Tensor:
     """Interior face-normal component (q_f . n_f) of a cell vector field
-    q (n, 3)."""
+    q (n, 3): on plan meshes the axis component per family (normals are
+    +e_ax)."""
+    q = m.exchange(q)
+    if m.plan is not None:
+        return m.plan_flux_normal(q)
     uf = interpolate_fl(m, q)
     return (uf * m.normal).sum(1)
 
@@ -121,6 +131,8 @@ def div_flux_fl(m: FaceListMesh, phi: torch.Tensor, phi_b=None) -> torch.Tensor:
 
 
 def _grad_interior(m: FaceListMesh, x: torch.Tensor) -> torch.Tensor:
+    if m.plan is not None:
+        return m.plan_grad_interior(m.exchange(x))           # (n, ..., 3)
     xf = interpolate_fl(m, x)                                # (nf, ...)
     sf_vec = m.mag_sf[:, None] * m.normal                    # (nf, 3)
     face_vec = xf[..., None] * sf_vec.reshape(
@@ -145,14 +157,18 @@ def grad_multi_fl(meshes, X: torch.Tensor) -> torch.Tensor:
     """Gauss-linear gradient of k fields X (n_cells, k) that share interior
     geometry but carry different boundary coefficients (one FaceListMesh per
     column, e.g. the velocity components'): (n, k, 3). The interior work is
-    one batched gather and scatter; the patch a/b are stacked by column."""
+    one batched gather and scatter (per face family on plan meshes); the
+    patch a/b are stacked by column."""
     m = meshes[0]
     Xe = m.exchange(X)
-    w = m.weights[:, None]
-    xf = w * m.gather_own(Xe) + (1.0 - w) * m.gather_nei(Xe)  # (nf, k)
-    sf_vec = m.mag_sf[:, None] * m.normal                    # (nf, 3)
-    face_vec = xf[:, :, None] * sf_vec[:, None, :]           # (nf, k, 3)
-    out = m.scatter_faces(face_vec)                          # (n, k, 3)
+    if m.plan is not None:
+        out = m.plan_grad_interior(Xe)                       # (n, k, 3)
+    else:
+        w = m.weights[:, None]
+        xf = w * m.gather_own(Xe) + (1.0 - w) * m.gather_nei(Xe)  # (nf, k)
+        sf_vec = m.mag_sf[:, None] * m.normal                # (nf, 3)
+        face_vec = xf[:, :, None] * sf_vec[:, None, :]       # (nf, k, 3)
+        out = m.scatter_faces(face_vec)                      # (n, k, 3)
     for ip in range(len(m.patches)):
         ps = [mm.patches[ip] for mm in meshes]
         p0 = ps[0]
@@ -184,7 +200,7 @@ def face_grad_fl(m: FaceListMesh, x: torch.Tensor,
     share one Gauss gradient across several corrections."""
     if grad is None:
         grad = grad_fl(m, x)
-    g, gn = grad[m.owner], grad[m.neighbour]
+    g, gn = m.gather_own(grad), m.gather_nei(grad)
     w = _fcol(m.weights, g)
     return w * g + (1.0 - w) * gn
 
@@ -239,6 +255,49 @@ def interpolate_skew_fl(m: FaceListMesh, x: torch.Tensor,
     return xf + (m.skew * face_grad_fl(m, x, grad)).sum(1)
 
 
+# ------------------------------------------------------- lattice stencils
+
+def _stencil_shape(shape, diag_lat, terms) -> tuple:
+    return torch.broadcast_shapes(tuple(shape), diag_lat.shape,
+                                  *(t.shape for _, U, L in terms
+                                    for t in (U, L)))
+
+
+def lattice_operands(shape, diag_lat, terms):
+    """(D, lo, hi) of `stencil7_apply` for fields of `shape` (..., nx, ny,
+    nz) from a plan stencil (diag_lat, ((ax, U, L), ...)): each operand
+    broadcast to the field shape with the batch flattened to one dimension,
+    contiguous, and one shared zero tensor for the axes without faces (an
+    empty axis of a 2D mesh). Build them once per solve."""
+    full = _stencil_shape(shape, diag_lat, terms)
+    flat = full if len(full) <= 4 else (math.prod(full[:-3]),) + full[-3:]
+    ex = lambda t: t.expand(full).reshape(flat).contiguous()
+    zero = torch.zeros(flat, dtype=diag_lat.dtype, device=diag_lat.device)
+    lo, hi = [zero] * 3, [zero] * 3
+    for ax, U, L in terms:
+        hi[ax] = ex(U)          # U multiplies x at +ax (roll by -1)
+        lo[ax] = ex(L)
+    return ex(diag_lat), lo, hi
+
+
+def apply_stencil_lattice(X: torch.Tensor, diag_lat: torch.Tensor,
+                          terms) -> torch.Tensor:
+    """Variable-coefficient stencil matvec on the cell lattice (the
+    FvMatrixFL.plan_stencil form):
+
+        out = diag_lat X + sum_ax U_ax roll(X, -1, ax) + L_ax roll(X, +1, ax)
+
+    The wrapped read on a non-cyclic axis meets a zero coefficient; on an
+    n = 1 cyclic axis it is the cell itself, (U + L) X, as the roll gives.
+    On the card this is the `stencil7_apply` kernel, whose neighbour indices
+    wrap on every axis; on the CPU its plain roll form."""
+    full = _stencil_shape(X.shape, diag_lat, terms)
+    D, lo, hi = lattice_operands(full, diag_lat, terms)
+    out = stencil7_apply(X.expand(full).reshape(D.shape).contiguous(),
+                         D, lo, hi)
+    return out.reshape(full)
+
+
 # ----------------------------------------------------- implicit (FvMatrixFL)
 
 @dataclasses.dataclass(frozen=True)
@@ -282,11 +341,76 @@ class FvMatrixFL:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         m = self.mesh
+        if m.plan is not None:
+            return self._apply_plan(x)
         x = m.exchange(x)
         # owner rows accumulate upper*x[nei]; neighbour rows lower*x[own]
         off = m.scatter_both(self.upper * x[..., m.neighbour],
                              self.lower * x[..., m.owner], lead=True)
         return self.diag_c * x + off / m.volumes
+
+    def _apply_plan(self, x: torch.Tensor) -> torch.Tensor:
+        """Matvec on a plan mesh through the lattice stencil form."""
+        return self.operator(x.shape)(x)
+
+    def operator(self, shape):
+        """x -> A(x) for fields of `shape` (..., n_cells), with the
+        coefficient preparation done once here: on plan meshes the lattice
+        operands of the stencil kernel, otherwise `apply` itself."""
+        m = self.mesh
+        if m.plan is None:
+            return self.apply
+        diag_lat, terms = self.plan_stencil()
+        full = _stencil_shape(tuple(shape)[:-1] + m.plan.shape, diag_lat,
+                              terms)
+        batch = full[:-3]
+        D, lo, hi = lattice_operands(full, diag_lat, terms)
+
+        def A(x):
+            X = x.expand(batch + (m.n_cells,)).reshape(D.shape)
+            return stencil7_apply(X.contiguous(), D, lo, hi).reshape(
+                batch + (m.n_cells,))
+        return A
+
+    def plan_stencil(self, scale: torch.Tensor | None = None):
+        """Lattice stencil coefficients (plan meshes): (diag_lat, ((ax, U,
+        L), ...)) with the 1/V row scaling folded in, so that
+        A(x) = apply_stencil_lattice(X, diag_lat, terms) on the lattice view
+        X of x. U_ax[c] is the coefficient of the +ax neighbour in row c
+        (zero on the last plane of a non-cyclic axis, the wrap face's on a
+        cyclic one), L_ax that of the -ax neighbour. Leading batch
+        dimensions of the coefficients carry through. `scale`: a per-cell
+        row scaling (the pressure equation's V/V_mean), folded into every
+        coefficient."""
+        m = self.mesh
+        shape = m.plan.shape
+        row = (1.0 / m.volumes).reshape(shape)
+        if scale is not None:
+            row = row * scale.reshape(shape)
+        diag_lat = self.diag_c.reshape(self.diag_c.shape[:-1] + shape)
+        if scale is not None:
+            diag_lat = diag_lat * scale.reshape(shape)
+        acc: dict[int, tuple] = {}
+        for ax, is_wrap, start, count in _plan_segments(m.plan):
+            lat = _lattice_shape(shape, ax, is_wrap)
+            up = self.upper[..., start:start + count]
+            lo = self.lower[..., start:start + count]
+            up = up.reshape(up.shape[:-1] + lat)
+            lo = lo.reshape(lo.shape[:-1] + lat)
+            if ax not in acc:
+                batch = torch.broadcast_shapes(self.upper.shape[:-1],
+                                               self.lower.shape[:-1])
+                acc[ax] = tuple(torch.zeros(batch + shape,
+                                            dtype=self.upper.dtype,
+                                            device=self.upper.device)
+                                for _ in range(2))
+            U, L = acc[ax]
+            U[_lat_index(ax, _fam_slice(shape[ax], is_wrap, True), True)] += up
+            L[_lat_index(ax, _fam_slice(shape[ax], is_wrap, False),
+                         True)] += lo
+        terms = tuple((ax, U * row, L * row)
+                      for ax, (U, L) in sorted(acc.items()))
+        return diag_lat, terms
 
     def rhs(self) -> torch.Tensor:
         return self.source

@@ -187,7 +187,30 @@ def solve_fvmatrix(eqn, x0, symmetric: bool = False, tol: float = 1e-7,
     and diag(A) = D is exact; `stencil`: eqn.stencil() when the caller has
     it. Face-list (FvMatrixFL, batched over leading dimensions of its
     coefficients): the matvec is eqn.apply and the diagonal eqn.diag(), the
-    JAX package's branch for meshes without a shift plan."""
+    JAX package's branch for meshes without a shift plan. Face-list meshes
+    with a shift plan run the whole Krylov loop on the (..., nx, ny, nz)
+    lattice: the stencil coefficients (eqn.plan_stencil) are prepared once
+    per solve and every matvec is the stencil kernel."""
+    plan = getattr(getattr(eqn, "mesh", None), "plan", None)
+    if plan is not None:
+        from .fv_facelist import _stencil_shape, lattice_operands
+        diag_lat, terms = eqn.plan_stencil()
+        b = eqn.rhs()
+        batch = torch.broadcast_shapes(b.shape[:-1], x0.shape[:-1])
+        full = _stencil_shape(batch + plan.shape, diag_lat, terms)
+        batch, n = full[:-3], math.prod(plan.shape)
+        D, lo, hi = lattice_operands(full, diag_lat, terms)
+        d_inv = 1.0 / torch.where(D.abs() > 1e-300, D, torch.ones_like(D))
+        lat = lambda v: v.expand(batch + (n,)).reshape(D.shape)
+        solver = cg if symmetric else bicgstab
+        res = solver(lambda X: stencil7_apply(X, D, lo, hi), lat(b),
+                     lat(x0).contiguous(), lambda r: d_inv * r, tol, rel_tol,
+                     max_iter)
+        per_lane = lambda t: t.reshape(batch)
+        return SolverResult(res.x.reshape(batch + (n,)),
+                            per_lane(res.initial_residual),
+                            per_lane(res.final_residual),
+                            per_lane(res.iterations))
     if not hasattr(eqn, "stencil"):
         d = eqn.diag()
         shape = torch.broadcast_shapes(d.shape, eqn.rhs().shape, x0.shape)

@@ -1,11 +1,13 @@
 """Low-Mach PIMPLE solver on the face-list backend (general meshes).
 
-Port of deepflame_tpu/solvers/low_mach_fl.py for meshes without a shift
-plan: the dfLowMachFoam loop of solvers/low_mach.py (chemistry, then rhoEqn,
-UEqn, YEqn, EEqn, correctThermo and the pEqn correctors with Rhie-Chow
-ddtCorr), discretised by gathers over owner/neighbour and ELL row sums
-(ops/fv_facelist.py), so any mesh given as owner/neighbour face lists
-(blockMesh, polyMesh) runs the same step.
+Port of deepflame_tpu/solvers/low_mach_fl.py: the dfLowMachFoam loop of
+solvers/low_mach.py (chemistry, then rhoEqn, UEqn, YEqn, EEqn,
+correctThermo and the pEqn correctors with Rhie-Chow ddtCorr), discretised
+by gathers over owner/neighbour and ELL row sums (ops/fv_facelist.py), so
+any mesh given as owner/neighbour face lists (blockMesh, polyMesh) runs the
+same step; on meshes with a shift plan (mesh.facelist.from_structured,
+graded_box) the gathers are lattice slices and every Krylov solve runs on
+the (nx, ny, nz) lattice through the `stencil7_apply` kernel.
 
 State layout is flat cells as in the JAX package: scalars (n,), vectors
 (n, 3), species (n, ns), interior face flux (nf,) and per-patch boundary
@@ -13,11 +15,15 @@ fluxes. Each field has its own FaceListMesh carrying its boundary
 coefficients over one geometry; species may come in BC groups
 (`m_Y_groups`). Each group's species, and the three velocity components,
 are one batched Krylov solve with per-lane convergence and counts (the JAX
-package vmaps the scalar solve). With `p_ell` set, the pressure-CG matvec
-goes through the ELLPACK SpMV kernel `ell_matvec` on the card.
-
-Not in this slice (they raise): RAS (`m_k`, `m_eps`, `wall_fns`), the AMG
-pressure preconditioner (`p_mg`) and spray `sources`.
+package vmaps the scalar solve). The pressure CG runs on the lattice with
+the V/V_mean row scaling folded into the stencil on plan meshes; otherwise,
+with `p_ell` set, its matvec is the ELLPACK SpMV kernel `ell_matvec` on the
+card. `p_mg` (ops.amg_fl.make_amg_fl) preconditions it with the
+aggregation-AMG V-cycle instead of Jacobi. RAS: k-epsilon, standard or RNG
+(`rng_keps_kwargs`), with `m_k`, `m_eps` and optional face-list wall
+functions (turbulence.wall_functions_fl); (k, eps) travel in the state's
+`turb`. Spray `sources` (Srho, SU, Sh, SY at SY_index) enter continuity,
+momentum, energy, the fuel species and the pressure equation.
 """
 from __future__ import annotations
 
@@ -34,11 +40,24 @@ from ..ops.fv_facelist import (FvMatrixFL, _boundary_face_value,
                                fvm_laplacian_fl, fvm_source_implicit_fl,
                                grad_fl, grad_multi_fl, interpolate_fl,
                                laplacian_nonortho_corr_fl, sngrad_fl)
+from ..ops.fv_facelist import lattice_operands
+from ..ops.kernels import stencil7_apply
 from ..ops.linsolve import cg, solve_fvmatrix
 from ..parallel.context import gmax, gmean, gmin
 from .low_mach import LowMachConfig
 
-__all__ = ["LowMachFLState", "LowMachSolverFL", "make_step_fl"]
+__all__ = ["LowMachFLState", "LowMachSolverFL", "rng_keps_kwargs",
+           "make_step_fl"]
+
+
+def rng_keps_kwargs(C1: float = 1.42) -> dict:
+    """Constructor kwargs of the RNG k-epsilon variant with its published
+    constants (OpenFOAM RNGkEpsilon: Cmu 0.0845, C1 1.42, C2 1.68, sigmak =
+    sigmaEps = 0.71942, eta0 4.38, beta 0.012). Cases may set C1 (the
+    Sandia D flareFGM case: 1.52)."""
+    return dict(keps_variant="RNG", Cmu=0.0845, C1=C1, C2=1.68,
+                sigma_k=0.71942, sigma_eps=0.71942, eta0=4.38,
+                beta_rng=0.012)
 
 
 class LowMachFLState(NamedTuple):
@@ -53,6 +72,7 @@ class LowMachFLState(NamedTuple):
     dpdt: torch.Tensor
     time: torch.Tensor
     chem_dt: Any = None      # per-cell warm-start chemistry step, or None
+    turb: tuple = ()         # (k, eps) when RAS is on (m_k set)
 
 
 def _face_product(m: FaceListMesh, q):
@@ -68,7 +88,11 @@ class LowMachSolverFL:
     coefficients over one geometry (GeneralMesh.with_bcs). m_Y is the
     species' shared BC mesh; m_Y_groups, when set, is ((mesh, (species
     index, ...)), ...): each group shares one BC mesh and one batched solve.
-    p_ell: m_p.ell_connectivity(), computed once."""
+    p_ell: m_p.ell_connectivity(), computed once. m_k, m_eps: the BC meshes
+    of the k-epsilon pair (RAS on when m_k is set), wall_fns a
+    WallFunctionsFL; Cmu ... beta_rng its constants (the standard model's,
+    or rng_keps_kwargs()'s with keps_variant "RNG"). p_mg: an AMGSetupFL of
+    m_p's connectivity."""
     m_p: FaceListMesh
     m_h: FaceListMesh
     m_Y: FaceListMesh
@@ -82,21 +106,31 @@ class LowMachSolverFL:
     m_eps: Any = None
     wall_fns: Any = None
     m_Y_groups: Any = None
+    Cmu: float = 0.09
+    C1: float = 1.44
+    C2: float = 1.92
+    sigma_k: float = 1.0
+    sigma_eps: float = 1.3
+    k_min: float = 1e-10
+    eps_min: float = 1e-12
+    Pr_t: float = 0.85
+    Sc_t: float = 0.7
+    keps_variant: str = "standard"   # standard | RNG
+    eta0: float = 4.38
+    beta_rng: float = 0.012
     p_mg: Any = None
     p_ell: Any = None
     les: Any = None
 
     def __post_init__(self):
-        for name in ("m_k", "m_eps", "wall_fns"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{name}: RAS on the face-list "
-                                          "backend is a later slice")
-        if self.p_mg is not None:
-            raise NotImplementedError("p_mg: the AMG pressure preconditioner "
-                                      "(ops/amg_fl.py) is a later slice")
+        if self.keps_variant not in ("standard", "RNG"):
+            raise ValueError(f"keps_variant {self.keps_variant!r}")
         dev = self.m_p.device
-        for name, t in (("thermo", self.thermo.W), ("transport", self.transport.W),
-                        ("kinetics", self.combustion.kinetics.W)):
+        # (the FGM solver may have no thermo, transport or combustion: the
+        # manifold gives the thermochemistry)
+        tables = (("thermo", self.thermo), ("transport", self.transport),
+                  ("kinetics", getattr(self.combustion, "kinetics", None)))
+        for name, t in ((k, v.W) for k, v in tables if v is not None):
             if t.device != dev and not (t.device.type == dev.type == "cuda"):
                 raise ValueError(f"{name} tables are on {t.device}, the mesh "
                                  f"on {dev}")
@@ -146,9 +180,11 @@ class LowMachSolverFL:
             phi_b.append(vb)
         return phi, tuple(phi_b)
 
-    def initial_state(self, p, T, Y, U=None, time: float = 0.0) -> LowMachFLState:
+    def initial_state(self, p, T, Y, U=None, time: float = 0.0, k0=1e-3,
+                      eps0=1e-2) -> LowMachFLState:
         """State from p, T (n,), Y (n, ns) and U (n, 3), tensors or arrays,
-        placed on the solver's device in the thermo tables' dtype."""
+        placed on the solver's device in the thermo tables' dtype; with RAS
+        (k, eps) start uniform at (k0, eps0)."""
         dtype, dev = self.dtype, self.device
         f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
         p, T, Y = f(p), f(T), f(Y)
@@ -162,10 +198,14 @@ class LowMachSolverFL:
             # warm-started per-cell chemistry substep, as the structured step
             chem_dt = torch.full((n,), self.combustion.ode_opts.dt_init,
                                  dtype=dtype, device=dev)
+        turb = ()
+        if self.m_k is not None:
+            turb = (torch.full((n,), k0, dtype=dtype, device=dev),
+                    torch.full((n,), eps0, dtype=dtype, device=dev))
         return LowMachFLState(rho=rho, U=U, p=p, ha=self.thermo.h_mass(T, Y),
                               Y=Y, T=T, phi=phi, phi_b=phi_b,
                               dpdt=torch.zeros(n, dtype=dtype, device=dev),
-                              time=f(time), chem_dt=chem_dt)
+                              time=f(time), chem_dt=chem_dt, turb=turb)
 
     def _fix_boundary_fluxes(self, phi_b, rho_b_face):
         """Prescribed mass flux on fixed-normal-velocity patches: all three
@@ -191,11 +231,67 @@ class LowMachSolverFL:
                 out[ip] = rho_b_face[ip] * 0.5 * pc.b * p.normal[:, ax]
         return tuple(out)
 
+    def _keps_advance(self, k, eps, rho, rho_old, phi, phi_b, U, mu, dt):
+        """One k-epsilon update on the face-list mesh: (k, eps, mu_t). The
+        production is clipped at 10 rho eps; wall cells take the wall
+        functions' production, eddy viscosity and pinned epsilon; the RNG
+        variant's eps production coefficient is C1 - R(eta)."""
+        cfg = self.config
+        m = self.m_p
+        mu_t = rho * self.Cmu * k * k / torch.clamp(eps, min=self.eps_min)
+        gU = grad_multi_fl(self.m_U, U)                  # (n, i, j)
+        S = 0.5 * (gU + gU.transpose(1, 2))
+        SS = (S * S).sum((1, 2))
+        divU = gU[:, 0, 0] + gU[:, 1, 1] + gU[:, 2, 2]
+        P = mu_t * 2.0 * SS
+        P = torch.minimum(P, 10.0 * rho * torch.clamp(eps, min=self.eps_min))
+        wf = self.wall_fns
+        if wf is not None:
+            # wall-layer production with the wall-function eddy viscosity
+            # (epsilonWallFunction uses the nut boundary field)
+            mut_w = rho * wf.nut(rho, k, mu)
+            P = wf.apply(wf.production(rho, k, mu, mut_w, U), P)
+            mu_t = wf.apply(mut_w, mu_t)
+        k_s = torch.clamp(k, min=self.k_min)
+        C1_eff = self.C1
+        if self.keps_variant == "RNG":
+            # eta = sqrt(2 |dev(symm grad U)|^2) k / eps,
+            # R = eta (1 - eta/eta0) / (1 + beta eta^3)
+            S2_dev = 2.0 * torch.clamp(SS - divU * divU / 3.0, min=0.0)
+            eta = torch.sqrt(S2_dev) * k_s / torch.clamp(eps, min=self.eps_min)
+            R = eta * (1.0 - eta / self.eta0) / (1.0 + self.beta_rng * eta ** 3)
+            C1_eff = self.C1 - R
+        D_e, D_eb = _face_product(m, mu + mu_t / self.sigma_eps)
+        eqn_e = (fvm_ddt_fl(self.m_eps, rho, rho_old, eps, dt)
+                 + fvm_div_fl(self.m_eps, phi, list(phi_b), cfg.div_scheme,
+                              x_now=eps)
+                 + fvm_laplacian_corrected_fl(self.m_eps, D_e, D_eb, eps,
+                                              sign=-1.0)
+                 + fvm_source_implicit_fl(self.m_eps,
+                                          self.C2 * rho * eps / k_s)
+                 ).with_source(C1_eff * (eps / k_s) * P)
+        res_e = solve_fvmatrix(eqn_e, eps, tol=1e-8, max_iter=cfg.max_iter_u)
+        eps = torch.clamp(res_e.x, min=self.eps_min)
+        if wf is not None:
+            eps = wf.apply(wf.epsilon(k), eps)
+        D_k, D_kb = _face_product(m, mu + mu_t / self.sigma_k)
+        eqn_k = (fvm_ddt_fl(self.m_k, rho, rho_old, k, dt)
+                 + fvm_div_fl(self.m_k, phi, list(phi_b), cfg.div_scheme,
+                              x_now=k)
+                 + fvm_laplacian_corrected_fl(self.m_k, D_k, D_kb, k,
+                                              sign=-1.0)
+                 + fvm_source_implicit_fl(self.m_k, rho * eps / k_s)
+                 ).with_source(P)
+        res_k = solve_fvmatrix(eqn_k, k, tol=1e-8, max_iter=cfg.max_iter_u)
+        k = torch.clamp(res_k.x, min=self.k_min)
+        mu_t = rho * self.Cmu * k * k / torch.clamp(eps, min=self.eps_min)
+        return k, eps, mu_t
+
     # ---------------------------------------------------------------- step
     def step(self, s: LowMachFLState, dt, sources=None):
-        if sources is not None:
-            raise NotImplementedError("spray sources on the face-list "
-                                      "backend: ROADMAP A13")
+        """One PIMPLE step. sources: the spray coupling dict, Srho (n,), SU
+        (3, n), Sh (n,), SY (n,) and SY_index (the fuel species), or
+        None."""
         cfg = self.config
         m = self.m_p
         dtype = s.T.dtype
@@ -207,11 +303,16 @@ class LowMachSolverFL:
         rho, U, p, ha, Y, T = s.rho, s.U, s.p, s.ha, s.Y, s.T
         phi, phi_b = s.phi, s.phi_b
         dpdt = s.dpdt
+        turb = s.turb
 
         # ===== chemistry (operator split, once per step)
         if cfg.chemistry:
             turb_q = None
-            if self.les is not None:
+            if self.m_k is not None:
+                # k and epsilon for the mixing models (Laminar ignores them)
+                mu0, _, _ = self._mixture_update(p, T, Y)
+                turb_q = dict(k=turb[0], epsilon=turb[1], nu=mu0 / rho)
+            elif self.les is not None:
                 # SGS k and epsilon for mixing models (Laminar ignores them)
                 mu0, _, _ = self._mixture_update(p, T, Y)
                 mu_t0 = self.les.mu_t_fl(rho, U, self.m_U, m.volumes)
@@ -228,13 +329,24 @@ class LowMachSolverFL:
             RR = torch.zeros_like(Y)
             chem_dt_new = s.chem_dt
 
-        for outer in range(cfg.n_outer):
-            # ===== rhoEqn
-            rho = rho_old - dt * div_flux_fl(m, phi, phi_b)
+        src_rho = sources["Srho"] if sources else None
 
-            # ===== coefficients, molecular + SGS effective
+        for outer in range(cfg.n_outer):
+            # ===== rhoEqn (parcels.Srho)
+            rho = rho_old - dt * div_flux_fl(m, phi, phi_b)
+            if src_rho is not None:
+                rho = rho + dt * src_rho
+
+            # ===== coefficients, molecular + RAS or SGS effective
             mu, alpha, rhoD = self._mixture_update(p, T, Y)
-            if self.les is not None:
+            if self.m_k is not None:
+                k_t, e_t, mu_t = self._keps_advance(
+                    turb[0], turb[1], rho, rho_old, phi, phi_b, U, mu, dt)
+                turb = (k_t, e_t)
+                mu = mu + mu_t
+                alpha = alpha + mu_t / self.Pr_t
+                rhoD = rhoD + mu_t[None] / self.Sc_t
+            elif self.les is not None:
                 mu_t = self.les.mu_t_fl(rho, U, self.m_U, m.volumes)
                 mu = mu + mu_t
                 alpha = alpha + mu_t / self.les.Pr_t
@@ -243,7 +355,9 @@ class LowMachSolverFL:
 
             # ===== UEqn
             U, HbyA, rAU = self._momentum(rho, rho_old, U, U_old, phi, phi_b,
-                                          p, mu_f, mu_bf, mu, dt, diag)
+                                          p, mu_f, mu_bf, mu, dt, diag,
+                                          SU=sources["SU"] if sources
+                                          else None)
 
             # ===== YEqn, one batched solve per BC group
             gY_all = None
@@ -263,6 +377,9 @@ class LowMachSolverFL:
                 phiUc_b = [(sumYDiff[p_.owner] * p_.normal).sum(1)
                            for p_ in m.patches]
                 srcs_Y = RR.T
+                if sources is not None and sources.get("SY_index") is not None:
+                    srcs_Y = srcs_Y.clone()
+                    srcs_Y[sources["SY_index"]] += sources["SY"]
                 it_ys = []
                 Y_new = Y.clone()
                 for m_Yg, idx in groups:
@@ -314,7 +431,10 @@ class LowMachSolverFL:
                                   x_now=ha)
                      + fvm_laplacian_corrected_fl(self.m_h, alpha_f, alpha_b,
                                                   ha, sign=-1.0))
-            eqn_h = eqn_h.with_source(dpdt - dKdt + hcorr_div)
+            src_h = dpdt - dKdt + hcorr_div
+            if sources:
+                src_h = src_h + sources["Sh"]
+            eqn_h = eqn_h.with_source(src_h)
             if cfg.solve_energy:
                 res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
                                        max_iter=cfg.max_iter_u)
@@ -331,7 +451,7 @@ class LowMachSolverFL:
             rhoU_old = self._face_flux(rho_old, U_old)
             p, phi, phi_b, U, dpdt, rho, p_res = self._pressure_loop(
                 p, p_old, psi, rho_fn, HbyA, rAU, dt, rho_old,
-                (s.phi, s.phi_b), rhoU_old, diag)
+                (s.phi, s.phi_b), rhoU_old, diag, src_rho=src_rho)
             diag[f"p_res_{outer}"] = p_res
             if outer < cfg.n_outer - 1:
                 p = p_prev + cfg.p_relax * (p - p_prev)
@@ -343,15 +463,18 @@ class LowMachSolverFL:
         diag["continuity_err"] = gmax((rho_eos - rho).abs()) / gmean(rho)
         diag["T_min"] = gmin(T)
         diag["T_max"] = gmax(T)
+        if self.m_k is not None:
+            diag["k_max"] = gmax(turb[0])
         return LowMachFLState(rho=rho, U=U, p=p, ha=ha, Y=Y, T=T, phi=phi,
                               phi_b=phi_b, dpdt=dpdt, time=s.time + dt,
-                              chem_dt=chem_dt_new), diag
+                              chem_dt=chem_dt_new, turb=turb), diag
 
     # ----------------------------------------------------------- momentum
     def _momentum(self, rho, rho_old, U, U_old, phi, phi_b, p, mu_f, mu_bf,
-                  mu, dt, stats):
+                  mu, dt, stats, SU=None):
         """Implicit momentum predictor: (U, HbyA, rAU). The three components
-        (each with its own BC mesh) are one batched solve."""
+        (each with its own BC mesh) are one batched solve. SU: the spray's
+        momentum source (3, n), or None."""
         cfg = self.config
         gp = grad_fl(self.m_p, p)                        # (n, 3)
         # explicit part of div(mu dev2(grad U)^T): all 10 coefficient-field
@@ -364,6 +487,7 @@ class LowMachSolverFL:
         g_vec = cfg.gravity
         srcs = [-gp[:, c] + (G[:, 0 + c, 0] + G[:, 3 + c, 1] + G[:, 6 + c, 2]
                              - G[:, 9, c] * (2.0 / 3.0))
+                + (SU[c] if SU is not None else 0.0)
                 + (rho * g_vec[c] if g_vec[c] else 0.0) for c in range(3)]
         scheme = cfg.div_scheme_U or cfg.div_scheme
         eqn = FvMatrixFL.stack([
@@ -383,11 +507,14 @@ class LowMachSolverFL:
         """Gauss gradient of coefficient fields q (n, ...) -> (n, ..., 3),
         the owner value on boundary faces (structured bcs_coeff role)."""
         m = self.m_p
-        qf = interpolate_fl(m, q)                            # (nf, ...)
-        sf_vec = m.mag_sf[:, None] * m.normal                # (nf, 3)
-        fv = qf[..., None] * sf_vec.reshape(
-            (sf_vec.shape[0],) + (1,) * (qf.dim() - 1) + (3,))
-        out = m.scatter_faces(fv)                            # (n, ..., 3)
+        if m.plan is not None:
+            out = m.plan_grad_interior(q)                    # (n, ..., 3)
+        else:
+            qf = interpolate_fl(m, q)                        # (nf, ...)
+            sf_vec = m.mag_sf[:, None] * m.normal            # (nf, 3)
+            fv = qf[..., None] * sf_vec.reshape(
+                (sf_vec.shape[0],) + (1,) * (qf.dim() - 1) + (3,))
+            out = m.scatter_faces(fv)                        # (n, ..., 3)
         for p_ in m.patches:
             qo = q[p_.owner]
             fb = qo * p_.mag_sf.reshape(
@@ -400,7 +527,7 @@ class LowMachSolverFL:
 
     # ------------------------------------------------------ pressure loop
     def _pressure_loop(self, p, p_old, psi, rho_fn, HbyA, rAU, dt, rho_old,
-                       phi_old_all, rhoU_old, stats):
+                       phi_old_all, rhoU_old, stats, src_rho=None):
         cfg = self.config
         m = self.m_p
         phi_old, phi_b_old = phi_old_all
@@ -442,22 +569,44 @@ class LowMachSolverFL:
             phiH_b = list(self._fix_boundary_fluxes(phiH_b, rho_bf))
             eqn_p = (fvm_source_implicit_fl(m, psi / dt)
                      + fvm_laplacian_fl(m, rhorAUf, rhorAU_b, sign=-1.0))
-            eqn_p = eqn_p.with_source(rho_old / dt
-                                      - div_flux_fl(m, phiH, phiH_b))
+            src_p = rho_old / dt - div_flux_fl(m, phiH, phiH_b)
+            if src_rho is not None:
+                # the spray's mass source, kept in the pressure equation as
+                # in continuity
+                src_p = src_p + src_rho
+            eqn_p = eqn_p.with_source(src_p)
             # CG needs SPD: solve the volume-scaled system (V/V_mean) A x =
             # (V/V_mean) b, symmetric by construction (exactly 1 on uniform
             # meshes)
             Vn = m.vol_local / gmean(m.vol_local)
-            if self.p_ell is not None:
+            plan_shape = m.plan.shape if m.plan is not None else None
+            if plan_shape is not None:
+                # on the lattice, the Vn scaling folded into the stencil,
+                # its operands prepared once for the CG
+                D_p, lo_p, hi_p = lattice_operands(
+                    plan_shape, *eqn_p.plan_stencil(scale=Vn))
+                apply_v = lambda X: stencil7_apply(X, D_p, lo_p, hi_p)
+                d_p = D_p
+            elif self.p_ell is not None:
                 nbr_e, coef_e = eqn_p.ell(conn=self.p_ell)
                 apply_v = lambda x: m.restrict(
                     eqn_p.apply_ell(x, nbr_e, coef_e) * Vn)
+                d_p = eqn_p.diag() * Vn
             else:
                 apply_v = lambda x: m.restrict(eqn_p.apply(x) * Vn)
-            d_p = eqn_p.diag() * Vn
-            d_inv = 1.0 / torch.where(d_p.abs() > 1e-300, d_p,
-                                      torch.ones_like(d_p))
-            M_inv = lambda r: d_inv * r
+                d_p = eqn_p.diag() * Vn
+            if self.p_mg is not None:
+                # aggregation-AMG V-cycle on the flat vector (PCG is
+                # invariant to the scalar scaling of M)
+                M_flat = self.p_mg.preconditioner(eqn_p, m.volumes)
+                M_inv = M_flat if plan_shape is None else (
+                    lambda R: M_flat(R.reshape(-1)).reshape(plan_shape))
+            else:
+                d_inv = 1.0 / torch.where(d_p.abs() > 1e-300, d_p,
+                                          torch.ones_like(d_p))
+                M_inv = lambda r: d_inv * r
+            lat = ((lambda v: v.reshape(plan_shape)) if plan_shape
+                   else (lambda v: v))
             # non-orthogonal correctors: the cross-diffusion k_no . grad_f(p)
             # enters as a deferred source rebuilt from the latest p; one
             # solve on orthogonal meshes
@@ -469,10 +618,10 @@ class LowMachSolverFL:
                                                      gamma_b=rhorAU_b)
                           if has_no else 0.0)
                 b_p = m.restrict((eqn_p.rhs() + src_no) * Vn)
-                res_p = cg(apply_v, b_p, p, M_inv, tol=cfg.p_tol,
+                res_p = cg(apply_v, lat(b_p), lat(p), M_inv, tol=cfg.p_tol,
                            rel_tol=cfg.p_rel_tol, max_iter=cfg.max_iter_p,
-                           nd=1)
-                p = res_p.x
+                           nd=3 if plan_shape else 1)
+                p = res_p.x.reshape(-1)
                 if p_res is None:
                     p_res = res_p.initial_residual
                 stats["iters_p"] = stats.get("iters_p", 0) + res_p.iterations
@@ -493,12 +642,13 @@ class LowMachSolverFL:
             U = HbyA - rAU[:, None] * gp
             dpdt = (p - p_old) / dt
         rho = rho_old - dt * div_flux_fl(m, phi, phi_b)
+        if src_rho is not None:
+            rho = rho + dt * src_rho
         return p, phi, tuple(phi_b), U, dpdt, rho, p_res
 
 
 def make_step_fl(solver):
     """`step(state, dt, sources=None) -> (state, diag)` of a face-list
-    solver. JAX compiles its step here with the mesh as a traced argument;
-    the port runs eagerly, so this is the solver's own step. Spray sources
-    on the face-list backend raise NotImplementedError (ROADMAP A13)."""
+    solver (LowMachSolverFL or FGMSolverFL). JAX compiles its step here;
+    the port runs eagerly, so this is the solver's own step."""
     return solver.step

@@ -6,8 +6,9 @@ is the low-Mach PIMPLE step (or the FGM step) with `parcels.evolve()` before
 it: the cloud samples the start-of-step gas and its Srho, SU, Sh and SY
 sources enter the step. HighSpeedSpraySolver evolves the cloud on the
 start-of-step gas of the density-based solver and kicks the conservative
-state with the sources after its step, then decodes T again. The face-list
-spray solver (SprayFLSolver) waits for the face-list overlay (ROADMAP A13).
+state with the sources after its step, then decodes T again.
+SprayFLSolver is dfSprayFoam on a general mesh: the face-list PIMPLE step
+with the cloud on a background overlay grid (lagrangian/overlay.py).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .high_speed import HighSpeedSolver, HighSpeedState
 from .low_mach import LowMachSolver, LowMachState
 
 __all__ = ["SprayState", "SpraySolver", "HighSpeedSprayState",
-           "HighSpeedSpraySolver"]
+           "HighSpeedSpraySolver", "SprayFLState", "SprayFLSolver"]
 
 
 class SprayState(NamedTuple):
@@ -137,4 +138,45 @@ class HighSpeedSpraySolver:
         _, _, _, T_new, _ = gs.primitives(gas2)
         gas2 = gas2._replace(T=T_new)
         return HighSpeedSprayState(gas=gas2, cloud=cloud), \
+            _with_stats(diag, self.cloud, cloud)
+
+
+class SprayFLState(NamedTuple):
+    gas: Any                 # LowMachFLState
+    cloud: CloudState
+
+
+@dataclasses.dataclass(frozen=True)
+class SprayFLSolver:
+    """Euler-Lagrangian spray on a general mesh: a LowMachSolverFL and an
+    OverlaySprayCloud over its cells. fuel_index: the gas species that takes
+    the evaporated vapour. The cloud samples the start-of-step gas (with
+    the carrier's cp and kappa, and the RAS k for the turbulent dispersion
+    when the gas carries it); its Srho, SU, Sh and SY enter the step."""
+    gas_solver: Any
+    cloud: Any
+    fuel_index: int
+
+    def initial_state(self, p, T, Y, U=None, generator=None,
+                      **gas_kw) -> SprayFLState:
+        gas = self.gas_solver.initial_state(p, T, Y, U, **gas_kw)
+        return SprayFLState(gas=gas, cloud=self.cloud.init(
+            generator, dtype=self.gas_solver.dtype))
+
+    def step(self, s: SprayFLState, dt):
+        gas = s.gas
+        gs = self.gas_solver
+        X = gs.thermo.mole_fractions(gas.Y)
+        gas_fields = dict(rho=gas.rho, U=gas.U, T=gas.T,
+                          mu=gs.transport.mu_mix(gas.T, X), p=gas.p,
+                          Yv=gas.Y[:, self.fuel_index],
+                          cp=gs.thermo.cp_mass(gas.T, gas.Y),
+                          kappa=gs.transport.lambda_mix(gas.T, X))
+        if gas.turb:
+            gas_fields["k_turb"] = gas.turb[0]
+        cloud, src = self.cloud.evolve(s.cloud, gas_fields, dt, gas.time)
+        sources = dict(Srho=src.Srho, SU=src.SU, Sh=src.Sh, SY=src.SY,
+                       SY_index=self.fuel_index)
+        gas_new, diag = gs.step(gas, dt, sources=sources)
+        return SprayFLState(gas=gas_new, cloud=cloud), \
             _with_stats(diag, self.cloud, cloud)

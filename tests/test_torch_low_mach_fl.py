@@ -394,27 +394,40 @@ def test_sheared_mesh_nonortho_corrector_matches_jax():
 
 
 def test_fl_solver_raises_on_later_slices():
+    """What raised NotImplementedError here before the face-list RAS, AMG
+    and spray slice (m_k, p_mg, sources) now runs: a k-epsilon solver with
+    (k, eps) in the state, an AMG-preconditioned one, a step with spray
+    sources; an unknown k-epsilon variant raises ValueError."""
+    from deepflame_torch.ops.amg_fl import make_amg_fl
     gt = tbm.build_blockmesh(tbm.parse_blockmesh_dict(DUCT_DICT))
     m = gt.with_bcs({k: tmesh.zero_gradient() for k in gt.patch_names
                      if k not in ("zlo", "zhi")}, torch.float64, device="cpu")
     th, tr, kin = _air_t()
     kw = dict(m_p=m, m_h=m, m_Y=m, m_rho=m, m_U=(m, m, m), thermo=th,
-              transport=tr, combustion=tcomb.NoCombustion(th, kin))
-    for extra in (dict(m_k=m), dict(p_mg=object())):
-        with pytest.raises(NotImplementedError):
-            LowMachSolverFL(**kw, **extra)
-    solver = LowMachSolverFL(**kw, config=LowMachConfig(chemistry=False))
-    s = solver.initial_state(np.full(m.n_cells, 1e5), np.full(m.n_cells, 300.0),
-                             np.ones((m.n_cells, 1)))
-    with pytest.raises(NotImplementedError):
-        solver.step(s, 1e-5, sources={"Srho": 0.0})
+              transport=tr, combustion=tcomb.NoCombustion(th, kin),
+              config=LowMachConfig(chemistry=False))
+    with pytest.raises(ValueError):
+        LowMachSolverFL(**kw, m_k=m, m_eps=m, keps_variant="kOmega")
+    n = m.n_cells
+    init = (np.full(n, 1e5), np.full(n, 300.0), np.ones((n, 1)))
+    for extra in (dict(m_k=m, m_eps=m), dict(p_mg=make_amg_fl(m))):
+        solver = LowMachSolverFL(**kw, **extra)
+        s, d = solver.step(solver.initial_state(*init), 1e-5)
+        assert len(s.turb) == (2 if "m_k" in extra else 0)
+        assert torch.isfinite(s.p).all() and int(d["iters_p"]) >= 0
+    solver = LowMachSolverFL(**kw)
+    z = torch.zeros(n, dtype=torch.float64)
+    s, _ = solver.step(solver.initial_state(*init), 1e-5, sources=dict(
+        Srho=z + 1e-3, SU=torch.zeros((3, n), dtype=torch.float64), Sh=z,
+        SY=z, SY_index=None))
+    assert float(s.rho.min()) > float(solver.initial_state(*init).rho.min())
 
 
 # ------------------------------------------------------- repairs of the port
 
 def test_make_step_fl_steps_like_the_solver():
     """make_step_fl(solver) is the solver's eager step(state, dt,
-    sources=None); spray sources raise NotImplementedError naming A13."""
+    sources=None); zero spray sources change nothing."""
     from deepflame_torch.solvers.low_mach_fl import make_step_fl
     gt = tbm.build_blockmesh(tbm.parse_blockmesh_dict(DUCT_DICT))
     m = gt.with_bcs({k: tmesh.zero_gradient() for k in gt.patch_names
@@ -435,8 +448,14 @@ def test_make_step_fl_steps_like_the_solver():
         if torch.is_tensor(x):
             assert torch.equal(x, y)
     assert int(da["iters_p"]) == int(db["iters_p"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        step(s, 1e-5, {"Srho": torch.zeros(m.n_cells, dtype=torch.float64)})
+    # zero spray sources leave the step as it is
+    z = torch.zeros(m.n_cells, dtype=torch.float64)
+    c, _ = step(s, 1e-5, dict(Srho=z, SU=torch.zeros((3, m.n_cells),
+                                                     dtype=torch.float64),
+                              Sh=z, SY=z, SY_index=None))
+    for x, y in zip(c, b):
+        if torch.is_tensor(x):
+            assert torch.equal(x, y)
 
 
 def test_combustion_correct_takes_turb_like_jax():

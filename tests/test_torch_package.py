@@ -191,26 +191,28 @@ def test_cpu_high_speed_and_fgm_steps_count_no_launch():
 # ROADMAP section A queue that ports it. Nothing else may be missing.
 QUEUED = {
     "native": {"partition_balance": "A15", "partition_slabs": "A15"},
-    "ops.fv_facelist": {"apply_stencil_lattice": "A13.1"},
-    "mesh.facelist": {"ShiftPlan": "A13.1", "from_structured": "A13.1",
-                      "graded_box": "A13.1", "structured_face_maps": "A13.1"},
     "mesh.structured": {"processor": "A15", "processor_parts": "A15"},
-    "solvers.low_mach_fl": {"rng_keps_kwargs": "A13.2"},
-    "solvers.spray": {"SprayFLState": "A13.3", "SprayFLSolver": "A13.3"},
     "parallel": {n: "A15" for n in (
         "DistLowMachState", "DistributedLowMach", "current_axis", "gsize",
         "localize_bcs", "localize_solver", "shard_axis")},
     "parallel.context": {n: "A15" for n in (
         "cell_weight", "current_axis", "current_cell_weight", "gsize",
         "shard_axis")},
-    "combustion.fgm.deep": {"train_deep_fgm": "A11b"},
 }
+# JAX modules with no counterpart in the port yet, each with its ROADMAP
+# section A queue; nothing else of the JAX package may be missing
+QUEUED_MODULES = {"mesh.amr": "A14", "mesh.patch_amr": "A14",
+                  "parallel.distributed": "A15",
+                  "parallel.distributed_fl": "A15"}
+# JAX modules whose port counterpart has another name: the TPU kernels'
+# module and the port's hand-written CUDA kernels' module
+COUNTERPART = {"ops.pallas_kernels": "ops.kernels"}
 
 
-def _port_modules():
+def _port_modules(package: str = "deepflame_torch"):
     """Dotted names (relative to the package) of every module and package
-    of the port."""
-    root = os.path.join(ROOT, "deepflame_torch")
+    of the port (or of the JAX package)."""
+    root = os.path.join(ROOT, package)
     out = []
     for d, _, names in os.walk(root):
         for n in names:
@@ -227,7 +229,10 @@ def _port_modules():
 def test_port_exports_what_jax_exports():
     """Every port module and package whose JAX counterpart has an __all__
     exports each of its names, less those ROADMAP section A still queues
-    (QUEUED, with their tags); every queued name is really missing."""
+    (QUEUED, with their tags); every queued name is really missing. And
+    every module of the JAX package has its port counterpart (of the same
+    dotted name, or COUNTERPART's), less those QUEUED_MODULES lists; every
+    listed module is really missing."""
     import importlib
     checked, missing = 0, {}
     for rel in _port_modules():
@@ -252,7 +257,13 @@ def test_port_exports_what_jax_exports():
         checked += 1
     assert not missing, missing
     assert checked >= 40
+    port = set(_port_modules())
+    jax_mods = _port_modules("deepflame_tpu")
+    absent = {rel for rel in jax_mods if COUNTERPART.get(rel, rel) not in port}
+    assert absent == set(QUEUED_MODULES), (sorted(absent),
+                                           sorted(QUEUED_MODULES))
+    assert len(jax_mods) >= 70
     roadmap = open(os.path.join(ROOT, "ROADMAP.md")).read()
-    for tags in QUEUED.values():
-        for tag in tags.values():
-            assert f"[{tag.split('.')[0]}]" in roadmap, tag
+    tags = [t for q in QUEUED.values() for t in q.values()]
+    for tag in tags + list(QUEUED_MODULES.values()):
+        assert f"[{tag.split('.')[0]}]" in roadmap, tag
