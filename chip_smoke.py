@@ -19,10 +19,17 @@ toolkit (nvcc). In order:
    both types, beside the device time of an empty kernel's launch; the
    stencil at the structured jet's (9, 128, 64, 64) and the aachenBomb's
    (1, 3 and 9 lanes of 41 x 100 x 41) and the plan jet's lattice pressure
-   (1, 128, 64, 64) with the boundary coefficients zeroed, the Helmholtz
-   operator on the jet's mesh, on every level of its multigrid hierarchy
-   and on the chamber's mesh, and the ELL SpMV on the blockMesh jet's and
-   the blockMesh chamber's connectivity;
+   (1, 128, 64, 64) with the boundary coefficients zeroed; the Helmholtz
+   operator in its BC form (ghosts computed in the kernel from a ghost
+   rule) at 96^3 (cyclic), on every level of the structured jet's
+   multigrid hierarchy with its pressure BCs, on the FGM jet's 1024 x 512 x
+   1 and the chamber's 41 x 100 x 41, and at 96^3 in float64, and in its
+   padded form at 96^3, on the jet's levels, the FGM jet's and the
+   chamber's meshes; the jet's pressure matvec as the solver calls it,
+   pad_field and the padded form against the BC form in turns (old, new,
+   new, old: device ms and device operations per matvec, wall ms per
+   call); and the ELL SpMV on the blockMesh jet's and the blockMesh
+   chamber's connectivity;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case, the face-list jet, the
@@ -167,6 +174,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12    # bf16 on the tensor cores, dense
 FP64_TC_FLOP_PER_S = 67e12     # float64 on the tensor cores
+FP64_FLOP_PER_S = 34e12        # float64 outside the tensor cores
 # mlp_fused at the DNN path's DF-ODENet: widths F -> H1 -> H2 -> H3 -> 1
 MLP_S, MLP_WIDTHS = 8, (11, 1600, 800, 400, 1)
 # per mode: (bytes of a weight, bytes of x, biases and out, peak FLOP/s)
@@ -309,6 +317,8 @@ def phase_kernels(torch, K, jet_conn, chamber_conn) -> dict:
     """Each kernel against its plain version at main-path shapes; jet_conn:
     the face-list jet's ELL connectivity (its solver's p_ell);
     chamber_conn: the face-list aachenBomb chamber's."""
+    from deepflame_torch.mesh import cyclic
+
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -342,10 +352,19 @@ def phase_kernels(torch, K, jet_conn, chamber_conn) -> dict:
     out["stencil7_apply"]["fljet_pressure_shape"] = row
 
     # --- Helmholtz: the pressure operator at 96^3, float32, main-path
-    # spacing; then the structured jet's 128 x 64 x 64 and each level of its
-    # multigrid hierarchy; then the FGM jet's 1024 x 512 x 1 at its spacing
+    # spacing, in the BC form the main paths run (the TGV's cyclic axes)
+    # and in the padded form; then the padded form on the structured jet's
+    # 128 x 64 x 64 and each level of its multigrid hierarchy, the FGM
+    # jet's 1024 x 512 x 1 and the chamber's 41 x 100 x 41; then the BC
+    # form at those shapes with each case's pressure BCs, and at 96^3 in
+    # float64; then the jet's pressure matvec as the solver calls it, old
+    # against new
     h = 2.0 * math.pi * 1e-3 / n
-    out["helmholtz7_apply"] = _helmholtz_row(
+    cyc = ((cyclic(), cyclic()),) * 3
+    tgv_bc = _helmholtz_bc_row(torch, K, _helmholtz_bc_sets(
+        torch, g, (n, n, n), (h, h, h), cyc), "TGV, cyclic")
+    out["helmholtz7_apply"] = dict(tgv_bc)
+    out["helmholtz7_apply"]["padded"] = _helmholtz_row(
         torch, K, _helmholtz_sets(torch, g, (n, n, n), (h, h, h)))
     out["helmholtz7_apply"]["sjet_levels"] = _helmholtz_levels(torch, K, g)
     h = FGM_LX / FGM_NX
@@ -358,6 +377,9 @@ def phase_kernels(torch, K, jet_conn, chamber_conn) -> dict:
         (0.02 / AACHEN_NXZ, 0.1 / AACHEN_NY, 0.02 / AACHEN_NXZ)))
     print("helmholtz7_apply at the aachenBomb's shape: " + json.dumps(row))
     out["helmholtz7_apply"]["spray_shape"] = row
+    out["helmholtz7_apply"]["bc_rows"] = _helmholtz_bc_rows(torch, K, g,
+                                                           tgv_bc)
+    out["helmholtz7_apply"]["solver_matvec"] = _solver_matvec(torch, K, g)
 
     out["gj_inverse"] = _gj_figures(torch, K, g)
     out["mlp_fused"] = _mlp_figures(torch, K, g)
@@ -419,18 +441,177 @@ def _helmholtz_row(torch, K, sets) -> dict:
           f"rel {rel:.3e} (tolerance 1e-5 of the largest |out|)")
     check(rel <= 1e-5, f"helmholtz7_apply {nx}x{ny}x{nz} disagrees with its "
                        "plain version")
-    cells = nx * ny * nz
-    n_bytes = 4 * ((nx + 2) * (ny + 2) * (nz + 2) + (nx + 1) * ny * nz
-                   + nx * (ny + 1) * nz + nx * ny * (nz + 1) + 2 * cells)
-    b_ms, b_by = bound_ms(n_bytes, 22 * cells)
+    b_ms, b_by = helmholtz_padded_bound((nx, ny, nz))
     return dict(
         route="cuda", source="deepflame_torch/csrc/helmholtz7.cu",
         replaces=f"{PALLAS}:438 (helmholtz_apply)",
         also_replaces=f"{PALLAS}:301 (helmholtz_apply_tiled)",
-        max_abs_err=err,
+        form="padded", max_abs_err=err,
         **timings(torch, K.helmholtz7_apply, "helmholtz7_kernel",
                   K.helmholtz_apply_plain, sets),
         bound_ms=b_ms, bound_by=b_by, shape=[nx, ny, nz], dtype="float32")
+
+
+def _helmholtz_bc_row(torch, K, sets, label: str) -> dict:
+    """helmholtz7_apply_bc against its plain version on `sets` of (x, gamma
+    faces, diag, spacing, ghost rule), f32 within 1e-5 and f64 within 1e-13
+    of the largest |out|; bound: x, diag, out and the face arrays of the
+    active axes once each, 1 + 7 operations a cell per active axis."""
+    x = sets[0][0]
+    shape = tuple(x.shape)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-13
+    err, rel = max_rel_err(torch, K.helmholtz7_apply_bc(*sets[0]),
+                           K.helmholtz_apply_bc_plain(*sets[0]))
+    dname = str(x.dtype).replace("torch.", "")
+    print(f"helmholtz7_apply_bc {shape} {dname} ({label}): max abs err "
+          f"{err:.3e}, rel {rel:.3e} (tolerance {tol:g} of the largest "
+          f"|out|)")
+    check(rel <= tol, f"helmholtz7_apply_bc {shape} {dname} ({label}) "
+                      "disagrees with its plain version")
+    b_ms, b_by = helmholtz_bc_bound(shape, x.element_size())
+    return dict(
+        route="cuda", source="deepflame_torch/csrc/helmholtz7.cu",
+        replaces=f"{PALLAS}:438 (helmholtz_apply)",
+        also_replaces=f"{PALLAS}:301 (helmholtz_apply_tiled)",
+        form="bc", bcs=label, max_abs_err=err,
+        **timings(torch, K.helmholtz7_apply_bc, "helmholtz7_kernel",
+                  K.helmholtz_apply_bc_plain, sets),
+        bound_ms=b_ms, bound_by=b_by, shape=list(shape), dtype=dname)
+
+
+def helmholtz_padded_bound(shape) -> tuple[float, str]:
+    """Bound of the padded form in float32: x padded, the three face
+    arrays, diag and out once, 22 operations a cell."""
+    nx, ny, nz = shape
+    cells = nx * ny * nz
+    n_bytes = 4 * ((nx + 2) * (ny + 2) * (nz + 2) + (nx + 1) * ny * nz
+                   + nx * (ny + 1) * nz + nx * ny * (nz + 1) + 2 * cells)
+    return bound_ms(n_bytes, 22 * cells)
+
+
+def helmholtz_bc_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Bound of the BC form: x, diag and out, and the face arrays of the
+    axes longer than one cell, once each; 1 + 7 operations a cell for each
+    such axis."""
+    cells = math.prod(shape)
+    active = [ax for ax, n_ax in enumerate(shape) if n_ax > 1]
+    faces = sum(cells // shape[ax] * (shape[ax] + 1) for ax in active)
+    return bound_ms(itemsize * (3 * cells + faces),
+                    (1 + 7 * len(active)) * cells,
+                    FP32_FLOP_PER_S if itemsize == 4 else FP64_FLOP_PER_S)
+
+
+def _helmholtz_bc_sets(torch, g, shape, spacing, bcs, dtype=None) -> list:
+    """Four seeded operand sets of helmholtz7_apply_bc on a mesh of `shape`
+    with the pressure BCs `bcs`: x N(0, 1), face coefficients in [1e-7,
+    1.1e-6], diag in [1, 4], float32 unless `dtype`."""
+    from deepflame_torch.mesh import StructuredMesh
+    from deepflame_torch.ops.kernels import ghost_rule
+
+    dtype = dtype or torch.float32
+    rule = ghost_rule(bcs, StructuredMesh(*shape, *spacing,
+                                          device=torch.device("cuda")))
+    check(rule is not None, "a pressure BC without a scalar ghost factor")
+    nx, ny, nz = shape
+    r = lambda s: torch.rand(s, generator=g, device="cuda", dtype=dtype)
+    sets = []
+    for _ in range(4):
+        x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+        gam = tuple(r(s) * 1e-6 + 1e-7 for s in (
+            (nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1)))
+        sets.append((x, gam, r(shape) * 3.0 + 1.0, spacing, rule))
+    return sets
+
+
+def _helmholtz_bc_rows(torch, K, g, tgv_row) -> list:
+    """The BC form at the main paths' shapes, each row printed: the TGV's
+    96^3 (cyclic; `tgv_row`, measured already), every level of the
+    structured jet's multigrid hierarchy with the jet's pressure BCs (level
+    0 is its 128 x 64 x 64 pressure), the FGM jet's 1024 x 512 x 1 (empty
+    z), the chamber's 41 x 100 x 41 (walls), and 96^3 in float64."""
+    from deepflame_torch.mesh import (StructuredMesh, cyclic, empty,
+                                      fixed_value, zero_gradient)
+    from deepflame_torch.ops.multigrid import mg_levels
+
+    zg = zero_gradient()
+    jet = ((zg, fixed_value(101325.0)), (zg, zg), (zg, zg))
+    rows = [tgv_row]
+    mesh = StructuredMesh.box([0.06, 0.03, 0.03],
+                              [2 * N_JET, N_JET, N_JET], device="cuda")
+    hier = []
+    for x, gam, d, _, _ in _helmholtz_bc_sets(torch, g, mesh.shape,
+                                              mesh.spacing, jet):
+        hier.append(mg_levels(mesh, d, gam))
+    for lvl in range(len(hier[0])):
+        sets = []
+        for levels in hier:
+            m, gam, d, _ = levels[lvl]
+            sets.append((torch.randn(m.shape, generator=g, device="cuda"),
+                         gam, d, m.spacing, K.ghost_rule(jet, m)))
+        row = _helmholtz_bc_row(torch, K, sets, f"jet bcs_p, multigrid "
+                                                f"level {lvl}")
+        row["level"] = lvl
+        rows.append(row)
+    h = FGM_LX / FGM_NX
+    rows.append(_helmholtz_bc_row(torch, K, _helmholtz_bc_sets(
+        torch, g, (FGM_NX, FGM_NY, 1), (h, h, h),
+        ((zg, fixed_value(101325.0)), (zg, zg), (empty(), empty()))),
+        "FGM jet bcs_p, empty z"))
+    rows.append(_helmholtz_bc_row(torch, K, _helmholtz_bc_sets(
+        torch, g, (AACHEN_NXZ, AACHEN_NY, AACHEN_NXZ),
+        (0.02 / AACHEN_NXZ, 0.1 / AACHEN_NY, 0.02 / AACHEN_NXZ),
+        ((zg, zg),) * 3), "aachenBomb walls"))
+    h = 2.0 * math.pi * 1e-3 / N_MAIN
+    rows.append(_helmholtz_bc_row(torch, K, _helmholtz_bc_sets(
+        torch, g, (N_MAIN,) * 3, (h, h, h),
+        ((cyclic(), cyclic()),) * 3, torch.float64), "TGV, cyclic"))
+    for row in rows[1:]:
+        print("helmholtz7_apply_bc: " + json.dumps(row))
+    return rows
+
+
+def _solver_matvec(torch, K, g) -> dict:
+    """The structured jet's pressure matvec as the solver calls it, at 128 x
+    64 x 64 with its pressure BCs, float32: the parent's (pad_field, then
+    the padded form) against the BC form (ops.kernels.helmholtz_operator,
+    as the solver calls it), on the same four operand sets, measured in
+    turns old, new, new, old. Each turn: device ms per matvec
+    (every device operation of the window summed, over the calls), device
+    operations per matvec, and wall ms per call back to back. The BC form
+    must be one device operation and agree with the old matvec."""
+    from deepflame_torch.mesh import (StructuredMesh, fixed_value, pad_field,
+                                      zero_gradient)
+
+    zg = zero_gradient()
+    bcs = ((zg, fixed_value(101325.0)), (zg, zg), (zg, zg))
+    mesh = StructuredMesh.box([0.06, 0.03, 0.03],
+                              [2 * N_JET, N_JET, N_JET], device="cuda")
+    sets = [s[:3] for s in _helmholtz_bc_sets(torch, g, mesh.shape,
+                                              mesh.spacing, bcs)]
+    forms = {
+        "old": lambda x, gam, d: K.helmholtz7_apply(
+            pad_field(x, bcs, mesh, homogeneous=True), gam, d, mesh.spacing),
+        "new": K.helmholtz_operator(bcs, mesh)}
+    err, rel = max_rel_err(torch, forms["new"](*sets[0]),
+                           forms["old"](*sets[0]))
+    check(rel <= 1e-6, f"jet matvec: the BC form and pad_field + the padded "
+                       f"form disagree ({rel:.3e})")
+    reps, turns = 20, []
+    for name in ("old", "new", "new", "old"):
+        ms, ops = device_profile(torch, forms[name], sets, reps=reps)
+        turns.append(dict(matvec=name, device_ms=ms, device_ops=ops / reps,
+                          wall_ms=call_ms(torch, forms[name], sets,
+                                          reps=reps)))
+    rec = dict(shape=list(mesh.shape), bcs="jet bcs_p", dtype="float32",
+               rel_err=rel, turns=turns)
+    for name in ("old", "new"):
+        mine = [t for t in turns if t["matvec"] == name]
+        rec[name] = {k: sum(t[k] for t in mine) / len(mine)
+                     for k in ("device_ms", "device_ops", "wall_ms")}
+    print("solver_matvec: " + json.dumps(rec))
+    check(all(t["device_ops"] == 1 for t in turns if t["matvec"] == "new"),
+          "jet matvec: the BC form is not one device operation")
+    return rec
 
 
 def _helmholtz_sets(torch, g, shape, spacing) -> list:
@@ -1028,20 +1209,19 @@ def phase_sjet_mg(torch, K, solver, state, jacobi_ms, jacobi_diag,
     """One more step of the structured jet's state with multigrid pressure
     preconditioning, synchronised and timed alone, printed beside the timed
     Jacobi steps (ms/step, pressure-CG iterations of the last, launches per
-    step). The multigrid step must launch the Helmholtz kernel on every
-    level of its hierarchy (the shapes its calls from ops.multigrid
-    take)."""
-    import deepflame_torch.ops.multigrid as mg
+    step). The multigrid step must launch the Helmholtz kernel's BC form
+    on every level of its hierarchy (the shapes its calls take: the CG's
+    and the V-cycle's)."""
     from deepflame_torch.ops.multigrid import mg_levels
 
-    shapes, inner = set(), mg.helmholtz7_apply
+    shapes, inner = set(), K.helmholtz7_apply_bc
 
-    def recorded(x_padded, gamma, diag, spacing):
+    def recorded(x, gamma, diag, spacing, rule):
         shapes.add(tuple(diag.shape))
-        return inner(x_padded, gamma, diag, spacing)
+        return inner(x, gamma, diag, spacing, rule)
 
     K.reset_launches()
-    mg.helmholtz7_apply = recorded
+    K.helmholtz7_apply_bc = recorded
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1049,7 +1229,7 @@ def phase_sjet_mg(torch, K, solver, state, jacobi_ms, jacobi_diag,
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     finally:
-        mg.helmholtz7_apply = inner
+        K.helmholtz7_apply_bc = inner
     check(bool(torch.isfinite(new.T).all() and torch.isfinite(new.p).all()),
           "sjet multigrid step: non-finite T or p")
     out = {"jacobi": dict(ms=jacobi_ms, iters_p=int(jacobi_diag["iters_p"]),
@@ -1062,7 +1242,7 @@ def phase_sjet_mg(torch, K, solver, state, jacobi_ms, jacobi_diag,
     # the hierarchy's shapes (any cell and face operands give them)
     levels = {m.shape for m, *_ in mg_levels(
         solver.mesh, state.T, tuple(state.phi))}
-    print(f"sjet multigrid: Helmholtz kernel shapes from ops.multigrid "
+    print(f"sjet multigrid: Helmholtz kernel shapes in the step "
           f"{sorted(shapes)}; hierarchy {sorted(levels)}")
     check(shapes == levels, "sjet multigrid: the Helmholtz kernel did not "
                             "run on every level")

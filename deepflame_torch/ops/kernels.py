@@ -10,7 +10,11 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
 `stencil7_apply`       `stencil_apply_tiled`: Krylov matvec of the species,
                        momentum and energy solves
 `helmholtz7_apply`     `helmholtz_apply` and `helmholtz_apply_tiled`: the
-                       pressure-CG matvec
+                       pressure-CG and multigrid matvec, on a padded x;
+                       `helmholtz7_apply_bc` is the same kernel on the
+                       unpadded x with the ghosts computed inside it from a
+                       `ghost_rule`; `helmholtz_operator` picks the form
+                       for a field's BCs
 `gj_inverse`           `gj_inverse_lanes`: Rosenbrock W inverse of the stiff
                        chemistry (one launch: a register kernel with n
                        fixed at compile time for small n, above it a
@@ -33,18 +37,22 @@ Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
 kernel does not take; it never falls back from kernel to plain on the card.
 Each wrapper call that launches adds one to `launches[name]` (an
 `mlp_fused` call makes four CUDA launches per chunk of lanes in one C call;
-`mlp_plan` asks the library for its chunks, launches and scratch).
+`mlp_plan` asks the library for its chunks, launches and scratch; both
+Helmholtz forms count under `helmholtz7_apply`).
 
 Build: at first use, `build()` runs one `nvcc` per source, all at once,
 into a plain-C-ABI shared library under `<repo>/build/kernels/`, named by a
 hash of the source and flags so that an edited source is rebuilt. The
-libraries are loaded with ctypes; every C entry point launches on the current
-PyTorch stream and returns `cudaGetLastError()`.
+libraries are loaded with ctypes, and each C entry point is looked up and
+typed once; every one launches on the current PyTorch stream and returns
+`cudaGetLastError()`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import numbers
 import os
 import re
 import shutil
@@ -55,8 +63,12 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F_nn
 
-__all__ = ["stencil7_apply", "helmholtz7_apply", "gj_inverse", "mlp_fused",
-           "stencil_apply_plain", "helmholtz_apply_plain", "gj_inverse_plain",
+from ..mesh.structured import pad_field
+
+__all__ = ["stencil7_apply", "helmholtz7_apply", "helmholtz7_apply_bc",
+           "gj_inverse", "mlp_fused", "stencil_apply_plain",
+           "helmholtz_apply_plain", "helmholtz_apply_bc_plain", "GhostRule",
+           "ghost_rule", "helmholtz_operator", "gj_inverse_plain",
            "mlp_fused_plain", "mlp_pack", "mlp_plan", "gj_limits",
            "ell_matvec", "ell_matvec_plain", "launches", "reset_launches",
            "build", "ptxas_report", "find_nvcc", "BUILD_DIR"]
@@ -73,7 +85,10 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_doub
 # the Gauss-Jordan library's empty kernel)
 _KERNELS = {
     "stencil7_apply": ("stencil7.cu", [_P] * 9 + [_L, _I, _I, _I, _P]),
-    "helmholtz7_apply": ("helmholtz7.cu", [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P]),
+    "helmholtz7_apply": ("helmholtz7.cu", {
+        **{dt: [_P] * 6 + [_I] * 3 + [_D] * 3 + [_P] for dt in ("f32", "f64")},
+        **{f"bc_{dt}": [_P] * 6 + [_I] * 3 + [_D] * 3 + [_I] + [_D] * 6 + [_P]
+           for dt in ("f32", "f64")}}),
     "gj_inverse": ("gj_inverse.cu", {
         "f32": [_P, _P, _I, _L, _P], "f64": [_P, _P, _I, _L, _P],
         "limits": [_I, _P, _P], "empty": [_P]}),
@@ -88,6 +103,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 launches = {name: 0 for name in _KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# typed entry points by (kernel, suffix), each beside the library it came from
+_fns: dict[tuple[str, str], tuple[ctypes.CDLL, object]] = {}
 _lock = threading.Lock()
 
 
@@ -162,17 +179,23 @@ def ptxas_report(log: str) -> list[tuple[str, int, int, int, int]]:
 
 
 def _function(name: str, suffix: str):
-    """The C entry point `<name>_<suffix>` of a kernel's library."""
+    """The C entry point `<name>_<suffix>` of a kernel's library, typed at
+    its first call and cached (again after `_libs[name]` is replaced)."""
+    hit = _fns.get((name, suffix))
+    if hit is not None and hit[0] is _libs.get(name):
+        return hit[1]
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not _so_path(name).exists():
                 build()
             lib = _libs[name] = ctypes.CDLL(str(_so_path(name)))
-    fn = getattr(lib, f"{name}_{suffix}")
-    argtypes = _KERNELS[name][1]
-    fn.argtypes = argtypes[suffix] if isinstance(argtypes, dict) else argtypes
-    fn.restype = ctypes.c_int
+        fn = getattr(lib, f"{name}_{suffix}")
+        argtypes = _KERNELS[name][1]
+        fn.argtypes = (argtypes[suffix] if isinstance(argtypes, dict)
+                       else argtypes)
+        fn.restype = ctypes.c_int
+        _fns[(name, suffix)] = (lib, fn)
     return fn
 
 
@@ -194,9 +217,11 @@ def _check(name: str, tensors, dtypes=None) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
+def _launch(name: str, dtype: torch.dtype, device, *args,
+            form: str = "") -> None:
+    """Launch entry point `<name>_<form><type suffix>` and count it."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _function(name, _SUFFIX[dtype])(*args, stream)
+    err = _function(name, form + _SUFFIX[dtype])(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[name] += 1
@@ -284,6 +309,102 @@ def helmholtz7_apply(x_padded, gamma, diag, spacing):
             *[t.data_ptr() for t in ops], out.data_ptr(), nx, ny, nz,
             *_inv_h2((nx, ny, nz), spacing))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GhostRule:
+    """The homogeneous ghost relation of each axis of a field's BCs:
+    `cyclic[ax]` (the neighbour wraps), else ghost = a[ax][0] * owner on the
+    low side and a[ax][1] * owner on the high side."""
+    cyclic: tuple[bool, bool, bool]
+    a: tuple[tuple[float, float], ...]
+
+
+def ghost_rule(bcs, mesh) -> GhostRule | None:
+    """The GhostRule of a FieldBCs ((x_lo, x_hi), (y_lo, y_hi), (z_lo,
+    z_hi)): pad_field's homogeneous relations (BC.coeffs(h, side)[0]). None
+    where a side's factor is a tensor (an affine BC with a per-face a): that
+    field takes the padded form. Processor boundaries raise, as in
+    pad_field."""
+    cyclic, a = [], []
+    for axis in range(3):
+        lo, hi = bcs[axis]
+        if lo.kind == "processor" or hi.kind == "processor":
+            raise NotImplementedError("processor boundaries are multi-device")
+        if lo.kind == "cyclic" or hi.kind == "cyclic":
+            if lo.kind != hi.kind:
+                raise ValueError("cyclic BC must be paired on both sides")
+            cyclic.append(True)
+            a.append((1.0, 1.0))
+            continue
+        h = mesh.spacing[axis]
+        pair = (lo.coeffs(h, -1)[0], hi.coeffs(h, +1)[0])
+        if not all(isinstance(v, numbers.Real) for v in pair):
+            return None
+        cyclic.append(False)
+        a.append(tuple(float(v) for v in pair))
+    return GhostRule(tuple(cyclic), tuple(a))
+
+
+def helmholtz_apply_bc_plain(x, gamma, diag, spacing, rule: GhostRule):
+    """Plain version of the BC form: each active axis's neighbours from x
+    and the rule's ghosts, then the TPU kernel's body."""
+    ih = _inv_h2(tuple(diag.shape), spacing)
+    out = diag * x
+    for ax in range(3):
+        if ih[ax] == 0.0:
+            continue
+        n = x.shape[ax]
+        first, last = x.narrow(ax, 0, 1), x.narrow(ax, n - 1, 1)
+        if rule.cyclic[ax]:
+            g_lo, g_hi = last, first
+        else:
+            g_lo, g_hi = rule.a[ax][0] * first, rule.a[ax][1] * last
+        x_lo = torch.cat([g_lo, x.narrow(ax, 0, n - 1)], dim=ax)
+        x_hi = torch.cat([x.narrow(ax, 1, n - 1), g_hi], dim=ax)
+        g = gamma[ax]
+        out = out - (g.narrow(ax, 1, n) * (x_hi - x)
+                     - g.narrow(ax, 0, n) * (x - x_lo)) * ih[ax]
+    return out
+
+
+def helmholtz7_apply_bc(x, gamma, diag, spacing, rule: GhostRule):
+    """helmholtz7_apply on the unpadded x (nx, ny, nz), the ghosts computed
+    inside the kernel from `rule` (`ghost_rule` of the field's BCs): the
+    same result as helmholtz7_apply(pad_field(x, bcs, mesh,
+    homogeneous=True), gamma, diag, spacing) with no padded copy. Counts
+    under launches["helmholtz7_apply"]."""
+    if x.device.type == "cpu":
+        return helmholtz_apply_bc_plain(x, gamma, diag, spacing, rule)
+    ops = [x, gamma[0], gamma[1], gamma[2], diag]
+    _check("helmholtz7_apply", ops)
+    nx, ny, nz = diag.shape
+    want = [(nx, ny, nz), (nx + 1, ny, nz), (nx, ny + 1, nz),
+            (nx, ny, nz + 1), (nx, ny, nz)]
+    if [tuple(t.shape) for t in ops] != want:
+        raise ValueError(f"helmholtz7_apply_bc: shapes "
+                         f"{[tuple(t.shape) for t in ops]}, expected {want}")
+    out = torch.empty_like(diag)
+    cyc_mask = sum(1 << ax for ax in range(3) if rule.cyclic[ax])
+    _launch("helmholtz7_apply", diag.dtype, diag.device,
+            *[t.data_ptr() for t in ops], out.data_ptr(), nx, ny, nz,
+            *_inv_h2((nx, ny, nz), spacing), cyc_mask,
+            *(v for pair in rule.a for v in pair), form="bc_")
+    return out
+
+
+def helmholtz_operator(bcs, mesh):
+    """The Helmholtz matvec of a field with BCs `bcs` on `mesh`,
+    homogeneous ghosts: (x, gamma, diag) -> out. The BC form with the BCs'
+    ghost rule, built here once; where a BC's ghost factor is per face (no
+    rule), pad_field and the padded form."""
+    rule = ghost_rule(bcs, mesh)
+    if rule is None:
+        return lambda x, gamma, diag: helmholtz7_apply(
+            pad_field(x, bcs, mesh, homogeneous=True), gamma, diag,
+            mesh.spacing)
+    return lambda x, gamma, diag: helmholtz7_apply_bc(x, gamma, diag,
+                                                      mesh.spacing, rule)
 
 
 # ------------------------------------------------------ Gauss-Jordan inverse

@@ -7,11 +7,13 @@ re-discretised diag + variable-coefficient Laplacian with coarsened face
 coefficients. One V(nu_pre, nu_post) cycle with damped-Jacobi smoothing is
 the preconditioner of the pressure CG (`LowMachConfig.p_precond="mg"`).
 
-Every level's matvec is the Helmholtz kernel (`ops.kernels.helmholtz7_apply`,
-its plain version on the CPU) on the homogeneously padded iterate, as the
-pressure CG's own matvec is. The kernel skips an axis of one cell, where the
-JAX level operator adds that axis's ghost difference: the two agree unless a
-coarse level halves an axis of two cells onto a fixedValue side.
+Every level's matvec is the Helmholtz kernel on the iterate, its ghosts
+computed inside the kernel from the pressure BCs (`ops.kernels.
+helmholtz_operator`, built once per level at set-up; the plain version on
+the CPU), as the pressure CG's own matvec is. The kernel skips an axis of one
+cell, where the JAX level operator adds that axis's ghost difference: the
+two agree unless a coarse level halves an axis of two cells onto a
+fixedValue side.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ from typing import Callable
 
 import torch
 
-from ..mesh.structured import StructuredMesh, pad_field
-from .kernels import helmholtz7_apply
+from ..mesh.structured import StructuredMesh
+from .kernels import helmholtz_operator
 
 __all__ = ["make_mg_preconditioner", "mg_levels"]
 
@@ -111,11 +113,11 @@ def make_mg_preconditioner(mesh: StructuredMesh, bcs, diag_coeff, gamma_faces,
     rAU on faces); bcs: the pressure BCs, homogeneous on every level.
     `dtype` is the fields' and is kept for the JAX package's signature."""
     levels = mg_levels(mesh, diag_coeff, gamma_faces, n_levels)
+    matvecs = [helmholtz_operator(bcs, m) for m, *_ in levels]
 
     def apply(lvl, x):
-        m, g, d, _ = levels[lvl]
-        return helmholtz7_apply(pad_field(x, bcs, m, homogeneous=True),
-                                g, d, m.spacing)
+        _, g, d, _ = levels[lvl]
+        return matvecs[lvl](x, g, d)
 
     def smooth(lvl, x, b, n_iters):
         inv_diag = levels[lvl][3]

@@ -53,7 +53,7 @@ from ..ops.fv import (_face_diff, div_explicit, div_flux, face_pair,
                       fvm_ddt, fvm_div, fvm_laplacian, fvm_source_implicit,
                       grad, interpolate, interpolate_cubic,
                       multivariate_limiter)
-from ..ops.kernels import helmholtz7_apply, stencil7_apply
+from ..ops.kernels import helmholtz_operator, stencil7_apply
 from ..ops.linsolve import cg, solve_fvmatrix
 from ..ops.multigrid import make_mg_preconditioner
 from ..parallel.context import gmax, gmean, gmin
@@ -513,8 +513,10 @@ class LowMachSolver:
                        src_rho=None, stats=None):
         """Compressible pressure correctors: returns (p, phi, U, dpdt, rho,
         last initial residual). src_rho: the spray's mass source, in the
-        pressure equation and the continuity density, or None. The CG matvec is the Helmholtz kernel on the
-        homogeneously padded iterate; the preconditioner is Jacobi on the
+        pressure equation and the continuity density, or None. The CG matvec
+        is the Helmholtz kernel on the iterate, its ghosts computed inside
+        the kernel from the pressure BCs (ops.kernels.helmholtz_operator);
+        the preconditioner is Jacobi on the
         exact stencil diagonal or one multigrid V-cycle, whose hierarchy is
         built at the first corrector and shared by the others."""
         mesh = self.mesh
@@ -522,6 +524,7 @@ class LowMachSolver:
         dtype = p.dtype
         p_res = torch.zeros((), dtype=dtype, device=p.device)
         M_inv_mg = None
+        matvec_p = helmholtz_operator(self.bcs_p, mesh)
         for _ in range(cfg.n_corr):
             rho = rho_fn(p)
             rho_f = tuple(interpolate(pad_field(rho, self.bcs_rho, mesh), ax)
@@ -552,9 +555,7 @@ class LowMachSolver:
             if src_rho is not None:
                 src_p = src_p + src_rho
             eqn_p = eqn_p.with_source(src_p)
-            apply_A = lambda x: helmholtz7_apply(
-                pad_field(x, self.bcs_p, mesh, homogeneous=True),
-                rhorAUf, coeff_d, mesh.spacing)
+            apply_A = lambda x: matvec_p(x, rhorAUf, coeff_d)
             if cfg.p_precond == "mg":
                 if M_inv_mg is None:
                     M_inv_mg = make_mg_preconditioner(mesh, self.bcs_p,

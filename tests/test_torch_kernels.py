@@ -6,6 +6,8 @@ JAX is imported inside the JAX tests only, so that the card's tests run on a
 machine without JAX:
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -95,6 +97,36 @@ def test_helmholtz_plain_skips_size_one_axis():
                                atol=1e-12)
 
 
+def test_entry_points_are_typed_once(monkeypatch):
+    """kernels._function looks an entry point up and types it once per
+    (kernel, suffix), and again after the library is replaced (as the
+    ablation tools replace it). A stand-in library counts the lookups."""
+    class Lib:
+        def __init__(self):
+            self.lookups = 0
+
+        def __getattr__(self, name):
+            if not name.startswith("helmholtz7_apply_"):
+                raise AttributeError(name)
+            self.lookups += 1
+            return type("Fn", (), {})()
+
+    lib = Lib()
+    monkeypatch.setitem(K._libs, "helmholtz7_apply", lib)
+    monkeypatch.setattr(K, "_fns", {})
+    fn = K._function("helmholtz7_apply", "bc_f32")
+    assert K._function("helmholtz7_apply", "bc_f32") is fn
+    assert lib.lookups == 1
+    assert len(fn.argtypes) == 20 and fn.restype is ctypes.c_int
+    assert K._function("helmholtz7_apply", "f64") is not fn
+    assert len(K._function("helmholtz7_apply", "f64").argtypes) == 13
+    assert lib.lookups == 2
+    other = Lib()
+    monkeypatch.setitem(K._libs, "helmholtz7_apply", other)
+    assert K._function("helmholtz7_apply", "bc_f32") is not fn
+    assert other.lookups == 1
+
+
 def test_ell_plain_matches_pallas():
     """ell_matvec's plain version (what CPU tensors take) against the Pallas
     kernel in interpret mode, on random operands with pad slots, float64,
@@ -179,6 +211,43 @@ def test_cuda_helmholtz_matches_plain(cuda, dtype):
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
     with pytest.raises(ValueError):
         K.helmholtz7_apply(xp, gam, d[:, :, :-1], sp)
+
+
+# ghost rules of the BC form: cyclic axes, and ghost = a * owner per side
+_RULES = {
+    "jet": K.GhostRule((False, False, False),
+                       ((1.0, -1.0), (1.0, 1.0), (1.0, 1.0))),
+    "mixed": K.GhostRule((False, True, False),
+                         ((-1.0, 1.0), (1.0, 1.0), (1.0, -1.0))),
+    "cyclic": K.GhostRule((True, True, True), ((1.0, 1.0),) * 3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", list(_RULES))
+@pytest.mark.parametrize("shape", [(24, 20, 16), (7, 5, 3), (33, 17, 1),
+                                   (9, 1, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_helmholtz_bc_matches_plain(cuda, dtype, shape, rule):
+    """The BC form against its plain version at odd sizes, a 2D grid and a
+    grid with an axis of one cell, f32 within 1e-5 and f64 within 1e-13 of
+    the largest |out|; one launch, counted under helmholtz7_apply."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    nx, ny, nz = shape
+    r = lambda *s: torch.rand(s, generator=g, device=cuda, dtype=dtype)
+    x = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    gam = (r(nx + 1, ny, nz), r(nx, ny + 1, nz), r(nx, ny, nz + 1))
+    d = r(nx, ny, nz)
+    sp = (1e-3, 2e-3, 3e-3)
+    before = K.launches["helmholtz7_apply"]
+    out = K.helmholtz7_apply_bc(x, gam, d, sp, _RULES[rule])
+    torch.cuda.synchronize()
+    assert K.launches["helmholtz7_apply"] == before + 1
+    ref = K.helmholtz_apply_bc_plain(x, gam, d, sp, _RULES[rule])
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    with pytest.raises(ValueError):
+        K.helmholtz7_apply_bc(x, gam, d[:, :, :-1], sp, _RULES[rule])
 
 
 def _near_identity(n, L, dtype, device, seed):
