@@ -94,14 +94,39 @@ toolkit (nvcc). In order:
    split's share of one more step; one split with every cell active (a
    labelled measurement, not the path); cj_speed on the test mechanism
    (three points, the test's options);
-11. fgm, the flareFGM solver on data/flare_CH4_drm19_SandiaD_4D.tbl: the
+11. amr, adaptive mesh refinement on the density-based solver. Gates first,
+   card against the CPU path in float64, in worker processes side by side,
+   every conserved field of coarse and fine within 1e-8 of its largest
+   value and the patch offsets equal after every step: FrontPatchAMR2D on
+   the 64 x 8 channel (2 row patches, pc 16, ratio 2, igniters over the
+   lower half, 2 steps; fine cells must burn) and on tests/test_patch_amr.py's
+   curved front in air (3 rows, 10 steps; the rows must move, by different
+   amounts), MovingPatchAMR with reflux and NestedPatchAMR (2 levels,
+   criteria, reflux) on the 1D tube at 100 cells (the example's spacing and
+   4 mm driver, so 0.67 m; 2 steps).
+   Then the reference's 2000 x 100
+   channel with front-shaped row patches (deepflame_torch.cases.
+   detonation_2d_h2_amr: 5 patches of 96 x 26 fine cells, ratio 4) in
+   float32, 2 warm-up and 5 timed coarse steps (launch counts set to 0 just
+   before, read just after; gj_inverse must launch in the coarse drain and
+   in the fine one, one drain a substep for every row): ms per coarse step,
+   the example's cell-updates per coarse step, launches and lanes of each
+   drain, the row offsets, the fine substeps' share of one more step, peak
+   memory, one step of the uniform channel beside it and, labelled, one step
+   of the uniform x-refined 8000 x 100 channel at dt / 4; the 1D tube
+   at 300 cells with 2 nested levels, criteria and reflux
+   (cases.detonation_1d_amr), 1 warm-up and 3 timed steps (gj_inverse must
+   launch); and gj_inverse against its plain version and the library at
+   the smallest and the largest fine drain of the timed steps (rows that
+   join the kernels line's gj_inverse path shapes);
+12. fgm, the flareFGM solver on data/flare_CH4_drm19_SandiaD_4D.tbl: the
    Sandia D jet at 96 x 48 in float64, 2 steps, card against CPU with the
    table and with a seeded DeepFGM (fields 1e-8, velocity and fluxes
    1e-6); the native and the Python parser's seconds on the nc41 table;
    the jet at 1024 x 512 in float32, 2 warm-up and 5 timed steps (the
    stencil and Helmholtz kernels must launch), the table lookups' share of
    one more step;
-12. spray and mist, the spray solvers. Gates first, card against the CPU
+13. spray and mist, the spray solvers. Gates first, card against the CPU
    path in float64, in worker processes side by side: the aachenBomb
    chamber at 11 x 20 x 11, 2 steps, the CPU replaying the card's draws
    (deepflame_torch.lagrangian.cloud.draw), gas fields and parcel
@@ -121,7 +146,7 @@ toolkit (nvcc). In order:
    warm-up and 5 timed steps (gj_inverse must launch), the cloud's and the
    chemistry split's shares of one more step, gj_inverse at the split's
    lanes;
-13. the face-list backend's paths, each with float64 gates first (in
+14. the face-list backend's paths, each with float64 gates first (in
    worker processes, 2 steps) and then 2 warm-up and timed steps (2 on the
    jet, FL_STEPS on the others) in float32 with the launch counts set to 0
    just before and read just after:
@@ -143,7 +168,7 @@ toolkit (nvcc). In order:
      41 (cases.aachen_bomb_3d_fl: kEpsilon with wall functions, the cloud
      on an overlay grid); gate at 11 x 20 x 11, the CPU replaying the
      card's draws; ell_matvec must launch, gj_inverse must not;
-14. prints its total seconds, the card line, one JSON line of kernel
+15. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -153,6 +178,7 @@ imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -248,8 +274,10 @@ def device_profile(torch, fn, arg_sets, reps: int = 20, warm: int = 3,
             ok = named == len(dev) == reps * ops_per_call
         if ok:
             break
+        names = collections.Counter(e.name for e in dev)
         print(f"profiled window {attempt + 1} of {attempts}: {len(dev)} "
-              f"device operations ({named} named {kernel}) for {reps} calls")
+              f"device operations ({named} named {kernel}) for {reps} calls; "
+              f"by name " + json.dumps(names.most_common()))
     check(dev, "the profiler recorded no device operation")
     check(ok, f"{kernel}: {named} of {len(dev)} device operations for {reps} "
               f"calls")
@@ -277,8 +305,10 @@ def call_ms(torch, fn, arg_sets, reps: int = 20, warm: int = 3) -> float:
 def timings(torch, kernel_fn, kernel: str, plain_fn, sets, plain_reps: int = 20,
             library_fn=None, library_sets=None, reps: int = 20,
             ops_per_call: int | None = None, warm: int = 3) -> dict:
-    """Device ms of the kernel, its plain version and the library call, and
-    the kernel wrapper's wall ms per call, each after `warm` calls. With
+    """Device ms of the kernel, its plain version and the library call (and
+    the device operations per library call that its profiled window
+    recorded), and the kernel wrapper's wall ms per call, each after `warm`
+    calls. With
     `ops_per_call` (see device_profile) also the device operations per call
     that the kernel's profiled window recorded, as
     `cuda_launches_per_call`."""
@@ -287,8 +317,12 @@ def timings(torch, kernel_fn, kernel: str, plain_fn, sets, plain_reps: int = 20,
     out = dict(
         ms=ms, call_ms=call_ms(torch, kernel_fn, sets, reps=reps, warm=warm),
         plain_ms=device_ms(torch, plain_fn, sets, reps=plain_reps, warm=warm),
-        library_ms=(None if library_fn is None
-                    else device_ms(torch, library_fn, library_sets)))
+        library_ms=None)
+    if library_fn is not None:
+        lib_reps = 20
+        out["library_ms"], lib_records = device_profile(
+            torch, library_fn, library_sets, reps=lib_reps)
+        out["library_ops_per_call"] = lib_records / lib_reps
     if ops_per_call is not None:
         out["cuda_launches_per_call"] = records / reps
     return out
@@ -727,11 +761,11 @@ def _gj_figures(torch, K, g) -> dict:
     hot cells (40 lanes, part of one block) and the whole 2000 x 100
     channel (200,000), one drain bin of the aachenBomb chamber
     (AACHEN_BIN_LANES) and the mist's split (MIST_SPLIT_LANES), as
-    `path_shapes`; n = 54 (gri30's size) at
-    4,096 lanes in both types, as `n54`. At 2^17 lanes the six input sets
-    exceed the 50 MB L2 cache together, so each call reads cold inputs; at
-    the path shapes they lie in it together, as the integrator's freshly
-    made matrices would."""
+    `path_shapes` (the amr phase adds the AMR channel's fine drains); n =
+    54 (gri30's size) at 4,096 lanes in both types, as `n54`. At 2^17
+    lanes the six input sets exceed the 50 MB L2 cache together, so each
+    call reads cold inputs; at the path shapes they lie in it together, as
+    the integrator's freshly made matrices would."""
     floor = empty_launch_ms(torch, K)
     print(f"empty kernel launch: {floor:.5f} ms of device time (the floor "
           f"beside the bounds of small calls)")
@@ -3127,6 +3161,461 @@ def phase_sprayfl(torch, K, gm):
     return counts, ms
 
 
+# --------------------------------------------------------------------- amr
+
+AMR_STEPS = 5                  # timed coarse steps of the 2D row patches
+AMR_1D_WARM, AMR_1D_STEPS = 1, 3   # the 1D nest's warm-up and timed steps
+AMR_1D_N = 300                 # the 1D tube's coarse cells (the example's)
+AMR_GATES = ("front", "curved", "moving", "nested")
+AMR_CURVED_STEPS = 10          # the curved front's steps (its rows move)
+
+
+def _amr_gate(kind: str, dev: str):
+    """One AMR gate in float64 on `dev` (a worker): "front" FrontPatchAMR2D
+    on the 64 x 8 channel (2 rows, pc 16, ratio 2, buffer_c 2, buffer_y 2,
+    igniters over the lower half), 2 coarse steps; "curved" FrontPatchAMR2D
+    on tests/test_patch_amr.py's curved front in air (64 x 12 cells, 3 rows,
+    pc 24, ratio 2, buffer_c 3, buffer_y 2, no chemistry), AMR_CURVED_STEPS
+    steps, in which the rows move by different amounts; "moving"
+    MovingPatchAMR with reflux and "nested" NestedPatchAMR (2 levels,
+    criteria, reflux) on the 1D tube at 100 coarse cells (_amr_gate_tube),
+    2 coarse steps. Returns (the state as flat numpy leaves in the JAX
+    package's layout, {coarse and fine drains' lanes, the offsets after
+    each step})."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import detonation_2d_h2_amr, detonation_dt
+    from deepflame_torch.convert import (patch_state_to_numpy,
+                                         row_patch_state_to_numpy)
+    steps = 2
+    if kind == "front":
+        amr, ps = detonation_2d_h2_amr(
+            MECH, nx=64, ny=8, pc=16, n_rows=2, ratio=2, buffer_c=2,
+            buffer_y=2, dtype=torch.float64, device=dev,
+            igniters=((0.0, 0.05),))
+        dt = detonation_dt(amr.coarse)
+    elif kind == "curved":
+        amr, ps = _amr_gate_curved(torch, dev)
+        dt, steps = 8e-6, AMR_CURVED_STEPS
+    else:
+        amr, ps = _amr_gate_tube(torch, dev, levels=1 if kind == "moving"
+                                 else 2)
+        dt = detonation_dt(amr.coarse, a_bound=3500.0)
+    offsets = []
+    for _ in range(steps):
+        ps, diag = amr.step(ps, dt)
+        offsets.append(
+            diag["patch_offsets"].tolist() if "patch_offsets" in diag
+            else [int(diag["patch_offset"])])
+    rows = kind in ("front", "curved")
+    tree = row_patch_state_to_numpy(ps) if rows else patch_state_to_numpy(ps)
+    return _flat_tree(tree), dict(
+        lanes=diag.get("chem_lanes"),
+        fine_lanes=list(diag.get("fine_chem_lanes", ())), offsets=offsets)
+
+
+def _amr_gate_curved(torch, dev):
+    """tests/test_patch_amr.py's curved front: the one-species air gas on
+    1 m x 0.25 m in 64 x 12 cells (zeroGradient, HLLC, RK2, vanLeer, no
+    chemistry), 8 atm behind x = 0.30 + 0.04 sin(2 pi y / 0.25), 1 atm
+    ahead, 300 K; FrontPatchAMR2D with 3 rows of pc 24, ratio 2, buffer_c
+    3, buffer_y 2. Returns (amr, state)."""
+    from deepflame_torch import chemistry as tc
+    from deepflame_torch import mesh as tm
+    from deepflame_torch.mesh.patch_amr import FrontPatchAMR2D
+    from deepflame_torch.solvers.high_speed import (HighSpeedConfig,
+                                                    HighSpeedSolver)
+    mech = tc.load_mechanism(AIR, device=dev)
+    zg, e = (tm.zero_gradient(),) * 2, (tm.empty(),) * 2
+    b = (zg, zg, e)
+    solver = HighSpeedSolver(
+        mesh=tm.StructuredMesh.box([1.0, 0.25, 1.0 / 64], [64, 12, 1],
+                                   device=mech.device),
+        thermo=tc.make_thermo(mech, torch.float64),
+        kinetics=tc.make_kinetics(mech, torch.float64), bcs_rho=b,
+        bcs_U=(b,) * 3, bcs_p=b, bcs_Y=b,
+        config=HighSpeedConfig(flux="HLLC", rk_order=2, limiter="vanLeer",
+                               chemistry="none"))
+    amr = FrontPatchAMR2D.build(solver, pc=24, n_rows=3, ratio=2,
+                                buffer_c=3, buffer_y=2)
+    X, Yg, _ = solver.mesh.cell_centers(torch.float64)
+    xj = 0.30 + 0.04 * torch.sin(2.0 * math.pi * Yg / 0.25)
+    p = torch.where(X < xj, 8.0 * 101325.0, 101325.0).to(torch.float64)
+    return amr, amr.initial_state(p, torch.full_like(p, 300.0),
+                                  torch.ones((1,) + tuple(p.shape),
+                                             dtype=torch.float64,
+                                             device=p.device))
+
+
+def _amr_gate_tube(torch, dev, levels: int):
+    """cases.detonation_1d_amr's tube (its mixture, BCs, schemes, patch and
+    criteria) at 100 coarse cells of the example's spacing (2 m over
+    AMR_1D_N cells, so 0.67 m) with a 4 mm driver (one cell, as at 300
+    cells), in float64 with the 2D channel's chemistry options (rtol 1e-4,
+    atol 1e-8: the example's float64 ones take some 300 trips a drain
+    here). levels 1: MovingPatchAMR; 2: NestedPatchAMR; both with reflux.
+    Returns (amr, state)."""
+    import numpy as np
+    from deepflame_torch import chemistry as tc
+    from deepflame_torch import mesh as tm
+    from deepflame_torch.cases import DET1D_BUFFER, DET1D_PC, DET1D_RATIO
+    from deepflame_torch.chemistry.integrator import RosenbrockOptions
+    from deepflame_torch.mesh.amr import RefinementCriteria
+    from deepflame_torch.mesh.patch_amr import MovingPatchAMR, NestedPatchAMR
+    from deepflame_torch.solvers.high_speed import (HighSpeedConfig,
+                                                    HighSpeedSolver)
+    f64, n = torch.float64, 100
+    length = 2.0 * n / AMR_1D_N
+    mech = tc.load_mechanism(MECH, device=dev)
+    e = (tm.empty(),) * 2
+    b = ((tm.zero_gradient(),) * 2, e, e)
+    b_un = ((tm.symmetry(negate=True), tm.zero_gradient()), e, e)
+    coarse = HighSpeedSolver(
+        mesh=tm.StructuredMesh.box([length, length / n, length / n],
+                                   [n, 1, 1], device=mech.device),
+        thermo=tc.make_thermo(mech, f64), kinetics=tc.make_kinetics(mech, f64),
+        bcs_rho=b, bcs_U=(b_un, b, b), bcs_p=b, bcs_Y=b,
+        config=HighSpeedConfig(
+            flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
+            ode_opts=RosenbrockOptions(rtol=1e-4, atol=1e-8, max_steps=5000),
+            T_threshold=500.0))
+    if levels == 1:
+        amr = MovingPatchAMR.build(coarse, pc=DET1D_PC, ratio=DET1D_RATIO,
+                                   buffer_c=DET1D_BUFFER, reflux=True)
+    else:
+        amr = NestedPatchAMR.build(
+            coarse, pcs=(DET1D_PC,) * 2, ratio=2, buffer_c=DET1D_BUFFER,
+            isotropic=False, reflux=True, criteria=RefinementCriteria(
+                gradients=(("rho", 0.03),), fields=(("p", 3e5, 1e9),),
+                n_buffer=2))
+    Yv = np.zeros(mech.n_species)
+    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
+        Yv[mech.species_index(name)] = y
+    X, _, _ = coarse.mesh.cell_centers(f64)
+    drv = X < 0.004
+    T = torch.where(drv, 2000.0, 300.0).to(f64)
+    p = torch.where(drv, 90.0 * 101325.0, 101325.0).to(f64)
+    Y = torch.as_tensor(Yv / Yv.sum(), dtype=f64, device=X.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + coarse.mesh.shape)
+    return amr, amr.initial_state(p, T, Y.contiguous(), offset=0)
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    """Nested dicts of arrays as one dict keyed by dotted paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _tree_gate(torch, label, a, b, tol):
+    """Card leaves a against CPU leaves b: every float leaf within tol of
+    its largest value, every integer leaf (the patch offsets) equal."""
+    import numpy as np
+    ints = [k for k in a if a[k].dtype.kind in "iu"]
+    for k in ints:
+        check(np.array_equal(a[k], b[k]), f"{label}: {k} {a[k]} != {b[k]}")
+    _field_gate(torch, label, a, b, tuple(k for k in a if k not in ints),
+                tol)
+    print(f"{label}: offsets equal " + json.dumps(
+        {k: a[k].tolist() for k in ints}))
+
+
+class _DrainSpy:
+    """Every chemistry drain (HighSpeedSolver._chemistry_split) by solver,
+    labelled by `names` {id(solver): label}: its active lanes and the
+    gj_inverse launches it made; with `timed`, also every
+    HighSpeedSolver.step call's seconds by solver, synchronised before and
+    after."""
+
+    def __init__(self, torch, K, names, timed=False):
+        from deepflame_torch.solvers.high_speed import HighSpeedSolver
+        self.torch, self.K, self.names, self.timed = torch, K, names, timed
+        self.cls, self.drains, self.steps = HighSpeedSolver, [], []
+
+    def __enter__(self):
+        spy, cls = self, self.cls
+        self.split, self.step = cls._chemistry_split, cls.step
+
+        def split(solver, s, dt, stats=None):
+            st = {} if stats is None else stats
+            n0 = spy.K.launches["gj_inverse"]
+            out = spy.split(solver, s, dt, st)
+            spy.drains.append((spy.names.get(id(solver), "other"),
+                               st["chem_lanes"],
+                               spy.K.launches["gj_inverse"] - n0))
+            return out
+
+        def step(solver, s, dt):
+            spy.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spy.step(solver, s, dt)
+            spy.torch.cuda.synchronize()
+            spy.steps.append((spy.names.get(id(solver), "other"),
+                              time.perf_counter() - t0))
+            return out
+
+        cls._chemistry_split = split
+        if self.timed:
+            cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._chemistry_split, self.cls.step = self.split, self.step
+
+    def by(self, label):
+        """(lanes of each drain, launches of each drain) of one solver."""
+        rows = [(n, g) for who, n, g in self.drains if who == label]
+        return [n for n, _ in rows], [g for _, g in rows]
+
+
+def phase_amr(torch, K):
+    """AMR on the density-based solver. Gates first, side by side in worker
+    processes (card and CPU, float64; see _amr_gate): FrontPatchAMR2D on
+    the 64 x 8 channel and on the curved front, MovingPatchAMR with reflux
+    and NestedPatchAMR (2 levels, criteria, reflux) on the 1D tube at 100
+    cells; every conserved field of coarse and fine within 1e-8 of its
+    largest value, the offsets equal after every step; fine cells burn in
+    the reacting gates, and the curved front's rows move, by different
+    amounts. Then the two AMR paths in float32 (_amr_path, _amr_tube), and
+    gj_inverse against its plain version and the library at the smallest
+    and the largest fine drain of the row patches' timed steps
+    (_amr_gj_rows). Returns
+    ({path: launch counts of its timed steps}, {path: ms per coarse step},
+    [those gj_inverse rows])."""
+    t0 = time.perf_counter()
+    with _pool(2 * len(AMR_GATES)) as pool:
+        runs = {(k, d): pool.submit(_amr_gate, k, d)
+                for k in AMR_GATES for d in ("cuda", "cpu")}
+        for kind in AMR_GATES:
+            (card, dc), (ref, dr) = (runs[kind, "cuda"].result(),
+                                     runs[kind, "cpu"].result())
+            _tree_gate(torch, f"amr {kind} gate float64, "
+                              f"{len(dc['offsets'])} steps, card vs CPU",
+                       card, ref, 1e-8)
+            print(f"amr {kind} gate: offsets after each step "
+                  f"{dc['offsets']}; last step's drains, coarse "
+                  f"{dc['lanes']} lanes, fine {dc['fine_lanes']}")
+            check(dc["offsets"] == dr["offsets"],
+                  f"amr {kind}: the card's offsets {dc['offsets']} are not "
+                  f"the CPU's {dr['offsets']}")
+            if kind == "curved":
+                seen = [tuple(o) for o in dc["offsets"]]
+                check(len(set(seen)) > 1 and any(len(set(o)) > 1
+                                                 for o in seen),
+                      f"amr curved: the rows did not move, or moved alike: "
+                      f"{seen}")
+            else:
+                check(min(dc["fine_lanes"]) > 0,
+                      f"amr {kind}: no fine cell burned in the gate")
+    print(f"amr gates: {time.perf_counter() - t0:.1f} s")
+    counts, ms = {}, {}
+    counts["amr"], ms["amr"], fine_lanes = _amr_path(torch, K)
+    counts["amr1d"], ms["amr1d"] = _amr_tube(torch, K)
+    lanes = sorted({min(fine_lanes), max(fine_lanes)})
+    with _pool(1) as pool:
+        rows = pool.submit(_amr_gj_rows, lanes).result()
+    for L, row in zip(lanes, rows):
+        row["path"] = "amr fine drain"
+        print(f"gj_inverse n=10 L={L} f32 (amr fine drain): "
+              + json.dumps(row))
+    return counts, ms, rows
+
+
+def _amr_gj_rows(lanes):
+    """_gj_row at n = 10, float32, at each of `lanes`, in a worker: a fresh
+    process, as the kernels phase times the other drains' lanes early in
+    its own. Late in the whole smoke, torch.linalg.inv's profiled windows
+    once held 192 device operations for 20 calls (16 calls' worth of its
+    12), in every attempt; fresh, after 300 other windows and with 60 GiB
+    of the card held they hold 240 (tools/profiler_window_counts.py)."""
+    torch = _worker_torch()
+    from deepflame_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return [_gj_row(torch, K, g, 10, L, torch.float32) for L in lanes]
+
+
+def _amr_path(torch, K):
+    """detonation_2d_h2_amr at HS_NX x HS_NY coarse cells in float32, the
+    hs path's solver (factory.build_high_speed_solver with _hs_case()):
+    5 row patches of 96 x 26 fine cells, ratio 4. 2 warm-up and AMR_STEPS
+    timed coarse steps (launch counts set to 0 just before, read just
+    after; gj_inverse must launch in the coarse and in the fine drains);
+    then the fine substeps timed inside one more step, one step of the
+    uniform channel from the same state, and, labelled, one step of the
+    uniform x-refined (4 HS_NX) x HS_NY channel at dt / 4. Returns (launch
+    counts, ms per coarse step, the fine drains' lanes)."""
+    from deepflame_torch.cases import (detonation_2d_h2, detonation_2d_h2_amr,
+                                       detonation_dt)
+    t0 = time.perf_counter()
+    amr, ps = detonation_2d_h2_amr(MECH, nx=HS_NX, ny=HS_NY,
+                                   dtype=torch.float32, device="cuda",
+                                   case=_hs_case())
+    torch.cuda.synchronize()
+    dt = detonation_dt(amr.coarse)
+    r, pc, rows, by = amr.ratio, amr.pc, amr.n_rows, amr.buffer_y
+    cu_amr = HS_NX * HS_NY + rows * (pc * r) * (HS_NY // rows + 2 * by) * r
+    cu_fine = (HS_NX * r) * HS_NY * r
+    print(f"amr path: {HS_NX} x {HS_NY} float32 channel with "
+          f"FrontPatchAMR2D, {rows} row patches of "
+          f"{amr.fine.mesh.nx} x {amr.fine.mesh.ny} fine cells (pc {pc}, "
+          f"ratio {r}, buffer_c {amr.buffer_c}, buffer_y {by}), dt "
+          f"{dt:.6e} s, the fine substeps dt / {r}; offsets "
+          f"{ps.offsets.tolist()}; built in {time.perf_counter() - t0:.2f} s")
+    print(f"amr cell-updates per coarse step (examples/detonation_2d.py"
+          f":116-120): {cu_amr}, uniform x-fine {cu_fine} "
+          f"({cu_fine / cu_amr:.2f}x)")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ps, _ = amr.step(ps, dt)
+    torch.cuda.synchronize()
+    print(f"amr warm-up: 2 coarse steps in {time.perf_counter() - t0:.2f} s")
+    names = {id(amr.coarse): "coarse", id(amr.fine): "fine"}
+    T_before = ps.coarse.T.clone()
+    offsets = []
+    with _DrainSpy(torch, K, names) as spy:
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(AMR_STEPS):
+            ps, diag = amr.step(ps, dt)
+            offsets.append(diag["patch_offsets"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K.launches)
+    ms = wall / AMR_STEPS * 1e3
+    lanes_c, gj_c = spy.by("coarse")
+    lanes_f, gj_f = spy.by("fine")
+    print(f"amr path counts over {AMR_STEPS} coarse steps: "
+          f"{json.dumps(counts)}; per step " + json.dumps(
+              {k: v / AMR_STEPS for k, v in counts.items()}))
+    print(f"amr path: {ms:.2f} ms per coarse step, {cu_amr / (ms / 1e3):.4e} "
+          f"cell-updates/s by the example's count, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"amr drains per coarse step: {len(lanes_c) / AMR_STEPS:g} coarse, "
+          f"{len(lanes_f) / AMR_STEPS:g} fine (one per substep, every row "
+          f"in it); gj_inverse launches per step: coarse "
+          f"{sum(gj_c) / AMR_STEPS:g}, fine {sum(gj_f) / AMR_STEPS:g}")
+    print(f"amr drains: coarse lanes {lanes_c}, launches {gj_c}; fine lanes "
+          f"{lanes_f}, launches {gj_f}")
+    offsets = [o.tolist() for o in offsets]
+    fronts = amr._fronts(ps.coarse.rho).tolist()
+    print(f"amr row offsets after each step {offsets}; the rows' fronts "
+          f"(coarse x-index of max |d rho/dx|) after the last {fronts}")
+    check(len(lanes_f) == AMR_STEPS * r, f"amr: {len(lanes_f)} fine drains "
+                                         f"in {AMR_STEPS} steps, not one a "
+                                         f"substep")
+    check(counts["gj_inverse"] > 0 and sum(gj_c) > 0 and sum(gj_f) > 0,
+          f"amr: gj_inverse did not launch in the coarse and the fine "
+          f"drains: {counts}, {gj_c}, {gj_f}")
+    check(counts["gj_inverse"] == sum(gj_c) + sum(gj_f),
+          f"amr: launches outside the drains: {counts}")
+    check(offsets[-1] == [min(max(f - pc // 2, 0), HS_NX - pc)
+                          for f in fronts],
+          "amr: the offsets are not the rows' recentred fronts")
+    c = ps.coarse
+    rho, U, p, T, _ = amr.coarse.primitives(c)
+    check(bool(torch.isfinite(c.rhoE).all() and torch.isfinite(T).all()
+               and torch.isfinite(ps.fine.rhoE).all()),
+          "amr: non-finite state")
+    check(float((c.T - T_before).abs().max()) > 0.0, "amr: T did not change")
+    check(float(p.min()) > 0 and float(rho.min()) > 0, "amr: p or rho <= 0")
+    check(float(T.max()) > 1500.0, "amr: the igniters went out")
+    check(float((c.rhoY.sum(0) - c.rho).abs().max())
+          <= 1e-4 * float(c.rho.max()), "amr: rhoY does not sum to rho")
+
+    with _DrainSpy(torch, K, names, timed=True) as spy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amr.step(ps, dt)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    fine_s = sum(t for who, t in spy.steps if who == "fine")
+    coarse_s = sum(t for who, t in spy.steps if who == "coarse")
+    print(f"amr breakdown step: {total * 1e3:.2f} ms, of which the {r} fine "
+          f"substeps {fine_s * 1e3:.2f} ms ({fine_s / total:.3f}) and the "
+          f"coarse step {coarse_s * 1e3:.2f} ms ({coarse_s / total:.3f})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amr.coarse.step(ps.coarse, dt)
+    torch.cuda.synchronize()
+    print(f"amr: one step of the uniform {HS_NX} x {HS_NY} channel from the "
+          f"same state {(time.perf_counter() - t0) * 1e3:.2f} ms, beside "
+          f"{ms:.2f} ms per AMR coarse step")
+
+    # a labelled measurement: the uniform resolution the patches stand in
+    # for along x
+    solver, state = detonation_2d_h2(MECH, nx=r * HS_NX, ny=HS_NY,
+                                     dtype=torch.float32, device="cuda",
+                                     case=_hs_case())
+    state, _ = solver.step(state, dt / r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, d = solver.step(state, dt / r)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    print(f"amr labelled measurement (not a path): one step of the uniform "
+          f"x-refined {r * HS_NX} x {HS_NY} channel at dt / {r} after one "
+          f"warm-up, {one * 1e3:.2f} ms ({d['chem_lanes']} drain lanes); "
+          f"{r} such steps cover one coarse step: {r * one * 1e3:.2f} ms")
+    check(bool(torch.isfinite(state.rhoE).all()), "amr: x-fine non-finite")
+    del solver, state
+    return counts, ms, lanes_f
+
+
+def _amr_tube(torch, K):
+    """detonation_1d_amr(levels=2, reflux=True) at AMR_1D_N coarse cells in
+    float32: AMR_1D_WARM warm-up and AMR_1D_STEPS timed coarse steps
+    (launch counts set to 0 just before, read just after; gj_inverse must
+    launch). Returns (launch counts, ms per coarse step)."""
+    from deepflame_torch.cases import detonation_1d_amr, detonation_dt
+    t0 = time.perf_counter()
+    amr, ps = detonation_1d_amr(MECH, n=AMR_1D_N, levels=2, reflux=True,
+                                dtype=torch.float32, device="cuda")
+    dt = detonation_dt(amr.coarse, a_bound=3500.0)
+    print(f"amr1d path: {AMR_1D_N}-cell tube, NestedPatchAMR 2 levels of pc "
+          f"{amr.pc} (fine arrays {amr.fine.mesh.nx} and "
+          f"{amr.child.fine.mesh.nx} cells), ratio 2 a level, criteria, "
+          f"reflux, float32, dt {dt:.6e} s; built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for _ in range(AMR_1D_WARM):
+        ps, _ = amr.step(ps, dt)
+    names = {id(amr.coarse): "coarse", id(amr.fine): "level 1",
+             id(amr.child.fine): "level 2"}
+    offsets = []
+    with _DrainSpy(torch, K, names) as spy:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AMR_1D_STEPS):
+            ps, diag = amr.step(ps, dt)
+            offsets.append((diag["patch_offset"], ps.fine.offset))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K.launches)
+    ms = wall / AMR_1D_STEPS * 1e3
+    per = {lvl: spy.by(lvl) for lvl in ("coarse", "level 1", "level 2")}
+    print(f"amr1d path: {ms:.2f} ms per coarse step; counts over "
+          f"{AMR_1D_STEPS} steps {json.dumps(counts)}; drains per step "
+          + json.dumps({k: len(v[0]) / AMR_1D_STEPS for k, v in per.items()})
+          + "; gj_inverse launches per step "
+          + json.dumps({k: sum(v[1]) / AMR_1D_STEPS for k, v in per.items()})
+          + "; lanes " + json.dumps({k: v[0] for k, v in per.items()}))
+    print("amr1d offsets (level 1, level 2) after each step "
+          + json.dumps([[int(a), int(b)] for a, b in offsets]))
+    check(counts["gj_inverse"] > 0, f"amr1d: gj_inverse was not launched: "
+                                    f"{counts}")
+    check(bool(torch.isfinite(ps.coarse.rhoE).all()
+               and torch.isfinite(ps.fine.fine.rhoE).all()),
+          "amr1d: non-finite state")
+    _, _, p, T, _ = amr.coarse.primitives(ps.coarse)
+    check(float(T.max()) > 1500.0 and float(p.min()) > 0,
+          "amr1d: the driver went out or p <= 0")
+    return counts, ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -3136,8 +3625,8 @@ def main() -> int:
                          "extension")
     ap.add_argument("--phases", metavar="LIST",
                     help="run only these of tci, sjet-pasr, sjet-edc, "
-                         "light, hs, fgm, spray, mist, fljet, hsfl, fgmfl "
-                         "and sprayfl (comma-separated; "
+                         "light, hs, amr, fgm, spray, mist, fljet, hsfl, "
+                         "fgmfl and sprayfl (comma-separated; "
                          "light needs tci and sjet-pasr; spray and mist run "
                          "their gates first) after the build, and end "
                          "without the result lines")
@@ -3192,6 +3681,9 @@ def main() -> int:
         if "hs" in only:
             phase_hs(torch, K)
             phase_done("hs")
+        if "amr" in only:
+            phase_amr(torch, K)
+            phase_done("amr")
         if "fgm" in only:
             phase_fgm(torch, K)
             phase_done("fgm")
@@ -3260,6 +3752,11 @@ def main() -> int:
     phase_done("light")
     counts["hs"], ms["hs"] = phase_hs(torch, K)
     phase_done("hs")
+    amr_counts, amr_ms, amr_gj = phase_amr(torch, K)
+    counts.update(amr_counts)
+    ms.update(amr_ms)
+    figures["gj_inverse"]["path_shapes"] += amr_gj
+    phase_done("amr")
     counts["fgm"], ms["fgm"] = phase_fgm(torch, K)
     phase_done("fgm")
     spray_gates(torch)

@@ -5,7 +5,9 @@ the 3D LES jet flame of `__graft_entry__._build_3d_jet`, on its structured
 box (`jet_flame_3d_les`, the case `bench.py` times) and on a blockMesh mesh
 (`jet_flame_3d_les_fl`, the face-list path); the density-based solver's
 2D H2-air detonation channel (`detonation_2d_h2`, examples/detonation_2d.py)
-and Sod shock tube (`sod_shock_tube`, tests/test_high_speed.py); and the
+with front-shaped row-patch AMR (`detonation_2d_h2_amr`, its --amr), the 1D
+detonation tube with moving or nested patches (`detonation_1d_amr`,
+examples/detonation_1d_amr.py) and Sod shock tube (`sod_shock_tube`, tests/test_high_speed.py); and the
 flareFGM solver's 2D Sandia D jet (`sandia_d_fgm_2d`,
 examples/sandia_d_fgm_2d.py); the spray solvers' 3D aachenBomb chamber
 (`aachen_bomb_3d`, examples/aachen_bomb_3d.py, kEpsilon RAS) and the 1D
@@ -19,7 +21,7 @@ cloud on an overlay grid (`aachen_bomb_3d_fl`, kEpsilon with wall
 functions).
 
 Each returns (solver, state) on `device` (default: the CUDA card); the Sod
-tube also its run plan.
+tube also its run plan; the AMR cases (amr, state).
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
            "jet_initial_fields", "jet_flame_3d_les", "jet_flame_3d_les_fl",
            "jet_with_combustion", "jet_function_objects", "jet_fields",
-           "detonation_2d_h2", "detonation_dt", "sod_shock_tube",
+           "detonation_2d_h2", "detonation_2d_h2_amr", "detonation_1d_amr",
+           "detonation_dt", "sod_shock_tube",
            "sandia_d_fgm_2d", "AACHEN_FLOW_PROFILE", "AACHEN_DT",
            "aachen_bomb_3d", "watermist_detonation_1d",
            "jet_flame_3d_les_plan", "detonation_2d_h2_fl",
@@ -442,7 +445,8 @@ def detonation_2d_h2(mech_path: str, nx: int = 2000, ny: int = 100,
                      dtype=torch.float32, device=None, case=None,
                      igniters=DETONATION_IGNITERS):
     """2D H2-air detonation channel (dfHighSpeedFoam twoD_detonationH2,
-    examples/detonation_2d.py without AMR): 2 m x 0.1 m, nx x ny cells,
+    examples/detonation_2d.py; `detonation_2d_h2_amr` adds its AMR): 2 m x
+    0.1 m, nx x ny cells,
     Y_H2/O2/N2 = 0.01724/0.13793/0.84483 at 1 atm and 300 K, the igniter
     boxes (y bands `igniters`, x below max(2 mm, 2.5 dx)) at 100 atm and
     2000 K. Reflecting left wall, transmissive right, slip walls. HLLC,
@@ -472,7 +476,12 @@ def detonation_2d_h2(mech_path: str, nx: int = 2000, ny: int = 100,
                                  kinetics=make_kinetics(mech, dtype),
                                  bcs_rho=b_scalar, bcs_U=bcs_U,
                                  bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
-    dtype = solver.dtype
+    return solver, solver.initial_state(
+        *_detonation_2d_fields(mech, mesh, solver.dtype, igniters))
+
+
+def _detonation_2d_fields(mech, mesh, dtype, igniters):
+    """p, T, Y of the 2D detonation channel (see detonation_2d_h2)."""
     Yv = np.zeros(mech.n_species)
     for name, y in (("H2", 0.01724), ("O2", 0.13793), ("N2", 0.84483)):
         Yv[mech.species_index(name)] = y
@@ -487,7 +496,95 @@ def detonation_2d_h2(mech_path: str, nx: int = 2000, ny: int = 100,
     p = torch.where(hot, 100.0 * p0, p0).to(dtype)
     Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
     Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
-    return solver, solver.initial_state(p, T, Y.contiguous())
+    return p, T, Y.contiguous()
+
+
+def detonation_2d_h2_amr(mech_path: str, nx: int = 2000, ny: int = 100,
+                         pc: int = 24, n_rows: int = 5, ratio: int = 4,
+                         buffer_c: int = 4, buffer_y: int = 3,
+                         dtype=torch.float32, device=None, case=None,
+                         igniters=DETONATION_IGNITERS):
+    """The 2D detonation channel (`detonation_2d_h2`, the same solver and
+    initial fields) with front-shaped AMR, as `examples/detonation_2d.py
+    --amr` builds it: FrontPatchAMR2D over the channel's solver, `n_rows`
+    row patches of pc coarse cells refined `ratio`x along x, buffer_c
+    coarse cells and buffer_y rows of buffer (at 2000 x 100: 5 patches of
+    96 x 26 fine cells). Step: `detonation_dt(amr.coarse)`; the patches
+    take `ratio` substeps of dt / ratio. Returns (amr, RowPatchState)."""
+    from .mesh.patch_amr import FrontPatchAMR2D
+    solver, _ = detonation_2d_h2(mech_path, nx=nx, ny=ny, dtype=dtype,
+                                 device=device, case=case, igniters=())
+    amr = FrontPatchAMR2D.build(solver, pc=pc, n_rows=n_rows, ratio=ratio,
+                                buffer_c=buffer_c, buffer_y=buffer_y)
+    mech = load_mechanism(mech_path, device="cpu")
+    return amr, amr.initial_state(*_detonation_2d_fields(
+        mech, solver.mesh, solver.dtype, igniters))
+
+
+# examples/detonation_1d_amr.py's patch: pc coarse cells, refined RATIO x
+# by one level (two levels: 2 x each), BUFFER coarse cells of buffer
+DET1D_PC, DET1D_RATIO, DET1D_BUFFER = 40, 4, 6
+
+
+def detonation_1d_amr(mech_path: str, n: int = 300, levels: int = 1,
+                      reflux: bool = False, dtype=torch.float32, device=None):
+    """The 1D H2-air detonation tube with moving-patch AMR
+    (`examples/detonation_1d_amr.py`): n coarse cells over 2 m, H2/O2/N2
+    0.02851/0.226/0.745 at 1 atm and 300 K, a 2000 K, 90 atm driver at the
+    reflecting left wall (x below max(4 mm, 1.5 dx / r), r the effective
+    ratio: 4 mm at 300 cells); HLLC, RK2, vanLeer, split ODE chemistry above
+    500 K (rtol 1e-6, atol 1e-12 in float64, else 1e-4 and 1e-8, 5000
+    steps). levels = 1: MovingPatchAMR, a patch of DET1D_PC coarse cells
+    refined DET1D_RATIO x with DET1D_BUFFER of buffer; levels >= 2:
+    NestedPatchAMR, ratio 2 a level, x only, DET1D_PC cells at every level,
+    targeted by the example's RefinementCriteria (|grad rho| dx >= 0.03 or
+    p in [3e5, 1e9] Pa, 2 buffer layers). `reflux` couples the levels
+    conservatively. The patch starts at the wall. Step:
+    `detonation_dt(amr.coarse, a_bound=3500.0)`. Returns (amr,
+    PatchState)."""
+    from .mesh.amr import RefinementCriteria
+    from .mesh.patch_amr import MovingPatchAMR, NestedPatchAMR
+    mech = load_mechanism(mech_path, device=device)
+    th, kin = make_thermo(mech, dtype), make_kinetics(mech, dtype)
+    length = 2.0
+    mesh = StructuredMesh.box([length, length / n, length / n], [n, 1, 1],
+                              device=mech.device)
+    e = (empty(), empty())
+    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
+    b_un = ((symmetry(negate=True), zero_gradient()), e, e)
+    f64 = dtype == torch.float64
+    cfg = HighSpeedConfig(
+        flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
+        ode_opts=RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
+                                   atol=1e-12 if f64 else 1e-8,
+                                   max_steps=5000),
+        T_threshold=500.0)
+    coarse = HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
+                             bcs_rho=b_scalar, bcs_U=(b_un, b_scalar, b_scalar),
+                             bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+    if levels >= 2:
+        crit = RefinementCriteria(gradients=(("rho", 0.03),),
+                                  fields=(("p", 3e5, 1e9),), n_buffer=2)
+        amr = NestedPatchAMR.build(coarse, pcs=(DET1D_PC,) * levels, ratio=2,
+                                   buffer_c=DET1D_BUFFER, isotropic=False,
+                                   criteria=crit, reflux=reflux)
+        r = 2 ** levels
+    else:
+        amr = MovingPatchAMR.build(coarse, pc=DET1D_PC, ratio=DET1D_RATIO,
+                                   buffer_c=DET1D_BUFFER, reflux=reflux)
+        r = DET1D_RATIO
+    Yv = np.zeros(mech.n_species)
+    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
+        Yv[mech.species_index(name)] = y
+    Yv /= Yv.sum()
+    X, _, _ = mesh.cell_centers(dtype)
+    drv = X < max(0.002 * length, 1.5 * mesh.dx / r)
+    p0, T0 = 101325.0, 300.0
+    T = torch.where(drv, 2000.0, T0).to(dtype)
+    p = torch.where(drv, 90.0 * p0, p0).to(dtype)
+    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    return amr, amr.initial_state(p, T, Y.contiguous(), offset=0)
 
 
 def detonation_dt(solver, cfl: float = 0.3, a_bound: float = 3200.0) -> float:

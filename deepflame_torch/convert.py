@@ -4,9 +4,12 @@ or DeePFGM parameters into the port from plain numpy data.
 The functions take numpy arrays (for example the fields of the JAX
 package's `Mechanism` or `LowMachState`, or its DF-ODENet parameters, each
 passed through `numpy.asarray`), so the tests can start both packages from
-one state without this package importing the other.
+one state without this package importing the other. The AMR states go both
+ways (`*_to_numpy`), in the JAX package's layout.
 """
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -15,7 +18,9 @@ from .chemistry.dnn import DFODENet
 from .combustion.fgm import DeepFGM, FlameletTable
 from .chemistry.mechanism import MECHANISM_ARRAYS, Mechanism
 from .device import resolve_device
+from .mesh.patch_amr import PatchState, RowPatchState
 from .solvers.fgm_fl import FGMFLState
+from .solvers.high_speed import HighSpeedState
 from .solvers.high_speed_fl import HighSpeedFLState
 from .solvers.low_mach import LowMachState
 from .solvers.low_mach_fl import LowMachFLState
@@ -24,7 +29,10 @@ from .solvers.spray import SprayFLState
 __all__ = ["mechanism_from_numpy", "state_from_numpy", "fl_state_from_numpy",
            "hs_fl_state_from_numpy", "fgm_fl_state_from_numpy",
            "spray_fl_state_from_numpy", "dfodenet_from_numpy",
-           "flamelet_table_from_numpy", "deep_fgm_from_numpy"]
+           "flamelet_table_from_numpy", "deep_fgm_from_numpy",
+           "hs_state_from_numpy", "patch_state_from_numpy",
+           "row_patch_state_from_numpy", "patch_state_to_numpy",
+           "row_patch_state_to_numpy"]
 
 
 def mechanism_from_numpy(d: dict, device=None) -> Mechanism:
@@ -143,3 +151,76 @@ def deep_fgm_from_numpy(params, x_mean, x_std, y_mean, y_std,
     return DeepFGM(params=[(f(W), f(b)) for W, b in params],
                    x_mean=f(x_mean), x_std=f(x_std), y_mean=f(y_mean),
                    y_std=f(y_std))
+
+
+def _fields_of(x) -> dict:
+    """The fields of a mapping or of a NamedTuple (its _asdict())."""
+    return dict(x) if isinstance(x, Mapping) else x._asdict()
+
+
+def hs_state_from_numpy(d, dtype=torch.float64,
+                        device=None) -> HighSpeedState:
+    """HighSpeedState (structured) from numpy fields, a mapping or a
+    NamedTuple: rho, rhoU (3, ...), rhoE, rhoY (ns, ...), T and time."""
+    device = resolve_device(device)
+    d = _fields_of(d)
+    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return HighSpeedState(**{k: f(d[k]) for k in HighSpeedState._fields})
+
+
+def _offsets(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=torch.int32, device=device)
+
+
+def patch_state_from_numpy(d, dtype=torch.float64, device=None) -> PatchState:
+    """PatchState (MovingPatchAMR, NestedPatchAMR) from numpy fields, as the
+    JAX package's PatchState holds them: coarse, fine (a state, or the next
+    level's patch state) and offset, each a mapping or a NamedTuple."""
+    device = resolve_device(device)
+    d = _fields_of(d)
+    fine = _fields_of(d["fine"])
+    fine = (patch_state_from_numpy(fine, dtype, device) if "offset" in fine
+            else hs_state_from_numpy(fine, dtype, device))
+    return PatchState(coarse=hs_state_from_numpy(d["coarse"], dtype, device),
+                      fine=fine, offset=_offsets(d["offset"], device))
+
+
+def row_patch_state_from_numpy(d, dtype=torch.float64,
+                               device=None) -> RowPatchState:
+    """RowPatchState (FrontPatchAMR2D) from numpy fields in the JAX
+    package's layout, rows leading every leaf of fine (rhoU (R, 3, ...),
+    rhoY (R, ns, ...)); the port keeps the row axis after the component
+    axis (rhoU (3, R, ...), rhoY (ns, R, ...))."""
+    device = resolve_device(device)
+    d = _fields_of(d)
+    fine = _fields_of(d["fine"])
+    fine.update(rhoU=np.moveaxis(np.asarray(fine["rhoU"]), 0, 1),
+                rhoY=np.moveaxis(np.asarray(fine["rhoY"]), 0, 1))
+    return RowPatchState(coarse=hs_state_from_numpy(d["coarse"], dtype,
+                                                    device),
+                         fine=hs_state_from_numpy(fine, dtype, device),
+                         offsets=_offsets(d["offsets"], device))
+
+
+def _state_to_numpy(s) -> dict:
+    return {k: getattr(s, k).detach().cpu().numpy()
+            for k in HighSpeedState._fields}
+
+
+def patch_state_to_numpy(ps: PatchState) -> dict:
+    """A PatchState as nested dicts of numpy arrays (coarse, fine,
+    offset)."""
+    fine = (patch_state_to_numpy(ps.fine) if isinstance(ps.fine, PatchState)
+            else _state_to_numpy(ps.fine))
+    return dict(coarse=_state_to_numpy(ps.coarse), fine=fine,
+                offset=ps.offset.cpu().numpy())
+
+
+def row_patch_state_to_numpy(ps: RowPatchState) -> dict:
+    """A RowPatchState as dicts of numpy arrays in the JAX package's layout
+    (rows leading every leaf of fine)."""
+    fine = _state_to_numpy(ps.fine)
+    fine.update(rhoU=np.moveaxis(fine["rhoU"], 1, 0),
+                rhoY=np.moveaxis(fine["rhoY"], 1, 0))
+    return dict(coarse=_state_to_numpy(ps.coarse), fine=fine,
+                offsets=ps.offsets.cpu().numpy())

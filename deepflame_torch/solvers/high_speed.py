@@ -22,6 +22,14 @@ Two changes in the translation, neither changing what a lane computes:
   only the active cells are gathered into the lane-batched integrator
   (`chemistry.integrator.rosenbrock_integrate`: one `gj_inverse` launch a
   trip) and scattered back; the others keep their state, as JAX's do.
+
+A state may carry a batch of R independent blocks of the mesh's shape (the
+row patches of `mesh.patch_amr.FrontPatchAMR2D`, which JAX steps under
+`jax.vmap`): rho, rhoE and T (R, nx, ny, nz), rhoU (3, R, nx, ny, nz),
+rhoY (ns, R, nx, ny, nz), time (R,). One step then evaluates each RK
+stage's fluxes once and drains the hot cells of every block in one
+integrator call. A state without the batch axis takes the same path as
+before, with the same numbers.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from ..chemistry.kinetics import KineticsData, production_rates
 from ..chemistry.reactor import constant_volume_rhs_batched
 from ..chemistry.thermo import ThermoData
 from ..constants import GAS_CONSTANT
-from ..mesh.structured import (StructuredMesh, extend_padded, pad_field,
+from ..mesh.structured import (BC, StructuredMesh, extend_padded, pad_field,
                                pad_n, stack_bcs)
 from ..ops.fv import _face_diff, _sl, _trim, face_pair
 from ..ops.riemann import FLUX_SCHEMES
@@ -105,6 +113,20 @@ class HighSpeedSolver:
         ns = self.thermo.W.shape[0]
         return stack_bcs([self.bcs_rho, *self.bcs_U, self.bcs_p]
                          + [self.bcs_Y] * ns, self.mesh, self.dtype)
+
+    @functools.cached_property
+    def bcs_prim_batched(self):
+        """bcs_prim for primitives with a batch axis after the lane axis
+        (S, R, nx, ny, nz): each stacked ghost coefficient (S, ...) gains a
+        unit axis, so that S meets S and not R."""
+        def one(bc):
+            if bc.kind != "affine" or not any(
+                    torch.is_tensor(v) and v.dim() > 3 for v in bc.value):
+                return bc
+            return BC("affine", tuple(
+                v.unsqueeze(1) if torch.is_tensor(v) and v.dim() > 3 else v
+                for v in bc.value))
+        return tuple(tuple(one(bc) for bc in pair) for pair in self.bcs_prim)
 
     # ------------------------------------------------------------- state IO
     def initial_state(self, p, T, Y, U=None, time=0.0) -> HighSpeedState:
@@ -179,6 +201,7 @@ class HighSpeedSolver:
         rho, U, p, T, Y = self.primitives(s)
         flux_fn = FLUX_SCHEMES[self.config.flux]
         prim = torch.cat([rho[None], U, p[None], Y])
+        bcs = self.bcs_prim if rho.dim() == 3 else self.bcs_prim_batched
         flux_x = None
         d_rho = 0.0
         d_rhoU = [0.0, 0.0, 0.0]
@@ -189,7 +212,7 @@ class HighSpeedSolver:
                 continue
             t1, t2 = [(1, 2), (0, 2), (0, 1)][ax]
             # both sides as one (2, ...) batch through the face state
-            q = torch.stack(self._reconstruct(prim, self.bcs_prim, ax))
+            q = torch.stack(self._reconstruct(prim, bcs, ax))
             Y_ = torch.movedim(q[:, 5:], 1, -1)
             Y_ = Y_ / torch.clamp(Y_.sum(-1, keepdim=True), min=1e-12)
             st = self._face_state(
@@ -299,7 +322,7 @@ class HighSpeedSolver:
         """Constant-volume chemistry over dt in every cell above
         T_threshold: rho, rhoU and rhoE unchanged, T decoded later."""
         rho, U, p, T, Y = self.primitives(s)
-        sh = self.mesh.shape
+        sh = T.shape
         ns = Y.shape[0]
         Tf = T.reshape(-1)
         rhof = rho.reshape(-1)

@@ -64,6 +64,7 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.combustion.fgm, deepflame_torch.native\n"
         "import deepflame_torch.solvers.spray, deepflame_torch.lagrangian\n"
         "import deepflame_torch.turbulence.ras\n"
+        "import deepflame_torch.mesh.amr, deepflame_torch.mesh.patch_amr\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('deepflame_tpu')]\n"
@@ -187,6 +188,43 @@ def test_cpu_high_speed_and_fgm_steps_count_no_launch():
     assert torch.isfinite(state.T).all() and torch.isfinite(fstate.T).all()
 
 
+def test_high_speed_batch_axis_leaves_the_unbatched_step_unchanged():
+    """The density-based step's batch axis (FrontPatchAMR2D's rows): a
+    state of the reacting channel stepped with a batch of one (rho (1, nx,
+    ny, nz), rhoU (3, 1, ...), rhoY (ns, 1, ...)) gives the unbatched
+    step's numbers bit for bit, by step and by step_with_flux_x with its
+    fluxes; the stacked ghost coefficients gain the unit batch axis."""
+    from deepflame_torch.cases import detonation_2d_h2, detonation_dt
+    from deepflame_torch.solvers.high_speed import HighSpeedState
+    solver, s = detonation_2d_h2(MECH, nx=24, ny=4, dtype=torch.float64,
+                                 device="cpu", igniters=((0.0, 0.05),))
+    dt = detonation_dt(solver)
+    s, _ = solver.step(s, dt)
+    lead = {"rhoU": 1, "rhoY": 1}
+
+    def batch(x):
+        return HighSpeedState(*(v.unsqueeze(lead.get(k, 0))
+                                for k, v in x._asdict().items()))
+
+    def unbatch(x):
+        return {k: v.squeeze(lead.get(k, 0)) for k, v in x.items()}
+
+    one, d1 = solver.step(s, dt)
+    many, dn = solver.step(batch(s), dt)
+    assert d1["chem_lanes"] == dn["chem_lanes"] > 0
+    for k, v in unbatch(many._asdict()).items():
+        assert torch.equal(v, getattr(one, k)), k
+    one, _, f1 = solver.step_with_flux_x(s, dt)
+    many, _, fn = solver.step_with_flux_x(batch(s), dt)
+    for k, v in unbatch(many._asdict()).items():
+        assert torch.equal(v, getattr(one, k)), k
+    for k, v in unbatch(fn).items():
+        assert torch.equal(v, f1[k]), k
+    a_lo = solver.bcs_prim_batched[0][0].value[0]
+    assert solver.bcs_prim[0][0].kind == "affine"
+    assert tuple(a_lo.shape) == (5 + 9, 1, 1, 1, 1)
+
+
 # Names of JAX modules' __all__ the port does not export yet, each with the
 # ROADMAP section A queue that ports it. Nothing else may be missing.
 QUEUED = {
@@ -201,8 +239,7 @@ QUEUED = {
 }
 # JAX modules with no counterpart in the port yet, each with its ROADMAP
 # section A queue; nothing else of the JAX package may be missing
-QUEUED_MODULES = {"mesh.amr": "A14", "mesh.patch_amr": "A14",
-                  "parallel.distributed": "A15",
+QUEUED_MODULES = {"parallel.distributed": "A15",
                   "parallel.distributed_fl": "A15"}
 # JAX modules whose port counterpart has another name: the TPU kernels'
 # module and the port's hand-written CUDA kernels' module
