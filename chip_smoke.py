@@ -168,7 +168,33 @@ toolkit (nvcc). In order:
      41 (cases.aachen_bomb_3d_fl: kEpsilon with wall functions, the cloud
      on an overlay grid); gate at 11 x 20 x 11, the CPU replaying the
      card's draws; ell_matvec must launch, gj_inverse must not;
-15. prints its total seconds, the card line, one JSON line of kernel
+15. dist, the distributed paths (deepflame_torch.parallel) on 4 ranks that
+   share the card over gloo (spawned processes, a file store, halo planes
+   staged through the host; the ranks joined with a deadline and killed
+   on expiry). Float64 gates first, each over 2 steps
+   against the port's single-device CPU step (in worker processes side by
+   side), every field within 1e-8 of its largest value (the jets' velocity
+   and fluxes 1e-6), the diagnostics bit-equal on every rank and each
+   solve's iteration counts equal on every rank and within 1 of the
+   single-device step's: the stiff TGV at n = 8 split (2, 1, 1) and (2, 2,
+   1), the structured jet at 16 x 8 x 8 split (2, 1, 1) (beside the first,
+   on the other two ranks), the blockMesh jet at n = 8 on 4 ranks; each
+   also against the single-device step on the card, every field within
+   1e-9 (what the decomposition alone changes), and the single-device
+   card step against the CPU's printed beside; and
+   solve_chemistry(cross_shard=True) of 4,096 cells on the 4 ranks against
+   the global solve. Then, in float32: the 96^3 stiff TGV over (4, 1, 1)
+   ranks (DistributedLowMach), 1 warm-up and 2 timed steps and one more with
+   dlb_cross_shard, helmholtz7_apply and gj_inverse launching on every rank;
+   the 128 x 64 x 64 blockMesh jet on 4 ranks in (1, 2, 2) blocks
+   (DistributedLowMachFL, block_order), 1 warm-up and 1 timed step,
+   ell_matvec and gj_inverse launching on every rank. Per path: ms per step
+   (rank 0's wall time, closed by synchronize and a barrier),
+   cell-updates/s, launches, halo exchanges and all_reduces per step with
+   their bytes, peak memory per rank. Then each kernel against its plain
+   version at the shapes these paths launched it with (_dist_kernel_rows),
+   rows of the kernels line;
+16. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -1983,21 +2009,30 @@ def _as_numpy(state, fields) -> dict:
                 else getattr(state, k).cpu().numpy()) for k in fields}
 
 
-def _field_gate(torch, label, a, b, fields, tol, flow=(), flow_tol=None):
-    """Card fields a against CPU fields b (dicts of numpy arrays): each
-    field's largest deviation over its largest magnitude within tol (flow
-    fields within flow_tol)."""
+def _field_devs(torch, a, b, fields) -> dict:
+    """{field: largest deviation of a from b over b's largest magnitude}
+    (dicts of numpy arrays or tuples of them)."""
     errs = {}
-    for k in fields + flow:
+    for k in fields:
         xs = a[k] if isinstance(a[k], tuple) else (a[k],)
         ys = b[k] if isinstance(b[k], tuple) else (b[k],)
         errs[k] = max(max_rel_err(torch, torch.as_tensor(u),
                                   torch.as_tensor(v))[1]
                       for u, v in zip(xs, ys))
-    print(f"{label}: card vs CPU, largest deviation over largest value "
+    return errs
+
+
+def _field_gate(torch, label, a, b, fields, tol, flow=(), flow_tol=None,
+                what="card vs CPU"):
+    """Card fields a against CPU fields b (dicts of numpy arrays; `what`
+    names the two sides): each field's largest deviation over its largest
+    magnitude within tol (flow fields within flow_tol)."""
+    errs = _field_devs(torch, a, b, fields + flow)
+    print(f"{label}: {what}, largest deviation over largest value "
           + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
     for k, v in errs.items():
         check(v <= (flow_tol if k in flow else tol), f"{label}: {k} {v:.3e}")
+    return errs
 
 
 def _hs_case():
@@ -3382,7 +3417,7 @@ def phase_amr(torch, K):
     amounts. Then the two AMR paths in float32 (_amr_path, _amr_tube), and
     gj_inverse against its plain version and the library at the smallest
     and the largest fine drain of the row patches' timed steps
-    (_amr_gj_rows). Returns
+    (_gj_rows_fresh). Returns
     ({path: launch counts of its timed steps}, {path: ms per coarse step},
     [those gj_inverse rows])."""
     t0 = time.perf_counter()
@@ -3416,7 +3451,7 @@ def phase_amr(torch, K):
     counts["amr1d"], ms["amr1d"] = _amr_tube(torch, K)
     lanes = sorted({min(fine_lanes), max(fine_lanes)})
     with _pool(1) as pool:
-        rows = pool.submit(_amr_gj_rows, lanes).result()
+        rows = pool.submit(_gj_rows_fresh, lanes).result()
     for L, row in zip(lanes, rows):
         row["path"] = "amr fine drain"
         print(f"gj_inverse n=10 L={L} f32 (amr fine drain): "
@@ -3424,10 +3459,10 @@ def phase_amr(torch, K):
     return counts, ms, rows
 
 
-def _amr_gj_rows(lanes):
-    """_gj_row at n = 10, float32, at each of `lanes`, in a worker: a fresh
-    process, as the kernels phase times the other drains' lanes early in
-    its own. Late in the whole smoke, torch.linalg.inv's profiled windows
+def _gj_rows_fresh(lanes):
+    """_gj_row at n = 10, float32, at each of `lanes`, in a worker (the amr
+    and dist phases' drains): a fresh process, as the kernels phase times
+    the other drains' lanes early in its own. Late in the whole smoke, torch.linalg.inv's profiled windows
     once held 192 device operations for 20 calls (16 calls' worth of its
     12), in every attempt; fresh, after 300 other windows and with 60 GiB
     of the card held they hold 240 (tools/profiler_window_counts.py)."""
@@ -3616,6 +3651,555 @@ def _amr_tube(torch, K):
     return counts, ms
 
 
+# ------------------------------------------------------------- dist phase
+
+DIST_RANKS = 4                 # ranks of the dist phase, all on cuda:0
+DIST_JOIN_S = 420              # seconds before the ranks are killed
+DIST_PG_S = 120                # seconds a collective may wait
+DIST_DT = {"tgv": DT, "sjet": JET_DT, "fljet": JET_DT}
+DIST_LABEL = f"{DIST_RANKS} ranks sharing one H100 (gloo)"
+DIST_SPLIT_TOL = 1e-9          # distributed vs single-device, both on the card
+
+
+def _dist_case(case: str, dev, dtype, n: int = 8, mesh=None):
+    """(solver, state) of a dist-phase case: the stiff TGV, the structured
+    jet ((2n, n, n)) or the blockMesh face-list jet."""
+    from deepflame_torch import cases
+    if case == "tgv":
+        return cases.reacting_tgv_3d_les(MECH, n=n, dtype=dtype, device=dev)
+    if case == "sjet":
+        return cases.jet_flame_3d_les(MECH, n=n, dtype=dtype, device=dev)
+    return cases.jet_flame_3d_les_fl(MECH, n=n, dtype=dtype, device=dev,
+                                     mesh=mesh)
+
+
+def _dist_fields(state, fl: bool) -> dict:
+    keys = ["rho", "U", "p", "ha", "Y", "T"] + (["phi_b"] if fl else [])
+    out = {k: (tuple(t.cpu().numpy() for t in getattr(state, k))
+               if isinstance(getattr(state, k), tuple)
+               else getattr(state, k).cpu().numpy()) for k in keys}
+    out["phi"] = (state.phi.cpu().numpy() if fl
+                  else tuple(t.cpu().numpy() for t in state.phi))
+    return out
+
+
+def _dist_diag(d: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in d.items()}
+
+
+def _dist_chem_inputs(n_cells: int):
+    """(T, p, Y) numpy: cold cells but a hot front in the first rank's
+    quarter (the JAX package's test_chem_dlb front)."""
+    import numpy as np
+    from deepflame_torch.chemistry import load_mechanism
+    mech = load_mechanism(MECH, device="cpu")
+    rng = np.random.default_rng(7)
+    T = np.full(n_cells, 320.0)
+    q = n_cells // DIST_RANKS
+    T[: q // 2] = rng.uniform(1400.0, 2200.0, q // 2)
+    Yf = np.zeros(mech.n_species)
+    for s_, v in (("H2", 0.0285), ("O2", 0.2264), ("N2", 0.7451)):
+        Yf[mech.species_index(s_)] = v
+    return T, np.full(n_cells, 101325.0), np.tile(Yf, (n_cells, 1))
+
+
+def _dist_ref(case: str, dev: str):
+    """A reference of a float64 gate: two single-device steps on `dev`
+    (fields, diagnostics per step), in a worker process."""
+    torch = _worker_torch()
+    t0 = time.perf_counter()
+    solver, state = _dist_case(case, dev, torch.float64)
+    diags = []
+    for _ in range(2):
+        state, d = solver.step(state, DIST_DT[case])
+        diags.append(_dist_diag(d))
+    return _dist_fields(state, case == "fljet"), diags, \
+        time.perf_counter() - t0
+
+
+def _dist_gate(torch, case: str, mesh_shape, group, dev):
+    """Two float64 steps of a gate case on this rank's block."""
+    from deepflame_torch.parallel import (DistributedLowMach,
+                                          DistributedLowMachFL)
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    solver, state = _dist_case(case, dev, torch.float64)
+    if case == "fljet":
+        dist = DistributedLowMachFL(solver, group=group, device=dev)
+    else:
+        dist = DistributedLowMach(solver, mesh_shape=mesh_shape,
+                                  group=group, device=dev)
+    ds = dist.shard_state(state)
+    diags = []
+    for _ in range(2):
+        ds, d = dist.step(ds, DIST_DT[case])
+        diags.append(_dist_diag(d))
+    s = dist.gather_state(ds)
+    lead = tdist.get_rank(group) == 0
+    return dict(fields=_dist_fields(s, case == "fljet") if lead else None,
+                diags=diags, seconds=time.perf_counter() - t0)
+
+
+def _dist_chem(torch, rank: int, dev) -> dict:
+    """solve_chemistry(cross_shard=True) of this rank's quarter of 4,096
+    cells on the card, and on rank 0 the global solve of all of them."""
+    from deepflame_torch.chemistry import (load_mechanism, make_kinetics,
+                                           make_thermo)
+    from deepflame_torch.chemistry.integrator import RosenbrockOptions
+    from deepflame_torch.chemistry.reactor import solve_chemistry
+    from deepflame_torch.parallel import ShardGroup, shard_axis
+    from deepflame_torch.parallel.context import comm_stats
+    mech = load_mechanism(MECH, device=dev)
+    th = make_thermo(mech, torch.float64)
+    kin = make_kinetics(mech, torch.float64)
+    opts = RosenbrockOptions(rtol=1e-6, atol=1e-10, max_steps=2000)
+    T, p, Y = (torch.as_tensor(a, device=dev) for a in _dist_chem_inputs(4096))
+    q = T.shape[0] // DIST_RANKS
+    sl = slice(rank * q, (rank + 1) * q)
+    a2a = comm_stats["all_to_all"]
+    with shard_axis(ShardGroup((DIST_RANKS,), ("x",))):
+        r = solve_chemistry(th, kin, T[sl], p[sl], Y[sl], 1e-6, opts,
+                            n_bins=8, cross_shard=True)
+    out = dict(local=tuple(t.cpu().numpy() for t in (r.T, r.Y, r.RR)),
+               all_to_all=comm_stats["all_to_all"] - a2a, ref=None)
+    if rank == 0:
+        g = solve_chemistry(th, kin, T, p, Y, 1e-6, opts, n_bins=32)
+        out["ref"] = tuple(t.cpu().numpy() for t in (g.T, g.Y, g.RR))
+    return out
+
+
+class _LaunchArgs:
+    """The shape arguments of every kernel launch inside the block
+    (ops.kernels._launch wrapped): table() = {kernel: {(form, dtype, the
+    launch's trailing size arguments): launches}}, the trailing arguments
+    of helmholtz7_apply's padded form (nx, ny, nz, 1/hx^2, 1/hy^2,
+    1/hz^2), gj_inverse's (n, L) and ell_matvec's (n, w); other forms by
+    their name alone."""
+    TAIL = {"helmholtz7_apply": 6, "gj_inverse": 2, "ell_matvec": 2}
+
+    def __init__(self, K):
+        self.K = K
+        self.seen = collections.defaultdict(collections.Counter)
+
+    def __enter__(self):
+        launch = self.launch = self.K._launch
+        seen, tails = self.seen, self.TAIL
+
+        def spy(name, dtype, device, *args, form=""):
+            tail = tails.get(name) if form == "" else None
+            seen[name][(form, str(dtype).replace("torch.", ""),
+                        tuple(args[-tail:]) if tail else ())] += 1
+            return launch(name, dtype, device, *args, form=form)
+
+        self.K._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.K._launch = self.launch
+
+    def table(self) -> dict:
+        return {k: dict(v) for k, v in self.seen.items()}
+
+
+def _dist_timed(torch, K, dist, ds, dt, steps: int):
+    """`steps` timed steps of every rank (launch and collective counts set
+    to 0 just before, read just after; rank 0's wall time closed by
+    synchronize and a barrier); `shapes`: _LaunchArgs' table of them."""
+    import torch.distributed as tdist
+    from deepflame_torch.parallel.context import comm_stats, reset_comm_stats
+    torch.cuda.synchronize()
+    tdist.barrier()
+    K.reset_launches()
+    reset_comm_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _LaunchArgs(K) as spy:
+        for _ in range(steps):
+            ds, diag = dist.step(ds, dt)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    wall = time.perf_counter() - t0
+    return ds, diag, dict(
+        ms=wall / steps * 1e3, launches=dict(K.launches),
+        shapes=spy.table(),
+        comm={k: v / steps for k, v in comm_stats.items()},
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _dist_tgv96(torch, K, dev) -> dict:
+    """The 96^3 stiff TGV over (4, 1, 1) ranks in float32: 1 warm-up and 2
+    timed steps, then one step with the cross-shard chemistry balance."""
+    from deepflame_torch.parallel import DistributedLowMach
+    t0 = time.perf_counter()
+    solver, state = _dist_case("tgv", dev, torch.float32, n=N_MAIN)
+    dist = DistributedLowMach(solver, mesh_shape=(DIST_RANKS, 1, 1),
+                              device=dev)
+    ds = dist.shard_state(state)
+    del state
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds, _ = dist.step(ds, DT)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    T0 = ds.T.clone()
+    ds, diag, timed = _dist_timed(torch, K, dist, ds, DT, STEPS)
+    finite = bool(torch.isfinite(ds.T).all() and torch.isfinite(ds.p).all())
+    changed = float((ds.T - T0).abs().max()) > 0.0
+    dlb = DistributedLowMach(dataclasses.replace(
+        solver, combustion=dataclasses.replace(solver.combustion,
+                                               dlb_cross_shard=True)),
+        mesh_shape=(DIST_RANKS, 1, 1), device=dev)
+    ds, diag_dlb, timed_dlb = _dist_timed(torch, K, dlb, ds, DT, 1)
+    return dict(build_s=build, warm_s=warm, timed=timed, dlb=timed_dlb,
+                diag={k: float(v) for k, v in diag.items()},
+                diag_dlb={k: float(v) for k, v in diag_dlb.items()},
+                finite=finite and bool(torch.isfinite(ds.T).all()),
+                changed=changed, block=tuple(ds.T.shape))
+
+
+def _dist_fl128(torch, K, dev, mesh_path: str) -> dict:
+    """The 128 x 64 x 64 blockMesh jet over 4 ranks in float32, cells in
+    (1, 2, 2) blocks across the jet axis: 1 warm-up and 1 timed step."""
+    import pickle
+    from deepflame_torch.parallel import DistributedLowMachFL, block_order
+    deadline = time.monotonic() + 240
+    while not os.path.exists(mesh_path):
+        check(time.monotonic() < deadline, "the jet's blockMesh never came")
+        time.sleep(0.5)
+    t0 = time.perf_counter()
+    with open(mesh_path, "rb") as f:
+        gm = pickle.load(f)
+    solver, state = _dist_case("fljet", dev, torch.float32, n=N_JET, mesh=gm)
+    dist = DistributedLowMachFL(solver, device=dev,
+                                order=block_order(gm.centers, (1, 2, 2)))
+    ds = dist.shard_state(state)
+    del state, gm
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds, _ = dist.step(ds, JET_DT)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    T0 = ds.T.clone()
+    ds, diag, timed = _dist_timed(torch, K, dist, ds, JET_DT, 1)
+    own = dist.w_own > 0
+    # rank 0's own ELL connectivity (side, nbr), for the kernels line
+    conn = (tuple(t.cpu().numpy() for t in dist.local_solver.p_ell[1:])
+            if dist.shard.rank == 0 else None)
+    return dict(build_s=build, warm_s=warm, timed=timed, conn=conn,
+                diag={k: float(v) for k, v in diag.items()},
+                finite=bool(torch.isfinite(ds.T).all()
+                            and torch.isfinite(ds.p).all()),
+                changed=float((ds.T - T0)[own].abs().max()) > 0.0,
+                n_loc=dist.decomp.n_loc, owned=int(own.sum()))
+
+
+def _dist_rank(rank: int, world: int, store: str, out_dir: str,
+               mesh_path: str) -> None:
+    """One rank of the dist phase: gloo over the file store, cuda:0."""
+    import datetime
+    import pickle
+    import traceback
+    torch = _worker_torch()
+    torch.set_num_threads(1)
+    import torch.distributed as tdist
+    result = {}
+    try:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        tdist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=DIST_PG_S))
+        from deepflame_torch.ops import kernels as K
+        result["backend"] = str(tdist.get_backend())
+        pairs = [tdist.new_group([0, 1]), tdist.new_group([2, 3])]
+        t0 = time.perf_counter()
+        if rank < 2:
+            result["tgv-211"] = _dist_gate(torch, "tgv", (2, 1, 1),
+                                           pairs[0], dev)
+        else:
+            result["sjet-211"] = _dist_gate(torch, "sjet", (2, 1, 1),
+                                            pairs[1], dev)
+        result["tgv-221"] = _dist_gate(torch, "tgv", (2, 2, 1), None, dev)
+        result["fljet-4"] = _dist_gate(torch, "fljet", None, None, dev)
+        result["chem"] = _dist_chem(torch, rank, dev)
+        result["gates_s"] = time.perf_counter() - t0
+        result["tgv96"] = _dist_tgv96(torch, K, dev)
+        result["fl128"] = _dist_fl128(torch, K, dev, mesh_path)
+        tdist.barrier()
+        tdist.destroy_process_group()
+        result["ok"] = True
+    except BaseException:
+        result["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def _dist_iters_gate(label, diags_by_rank, ref_diags):
+    """Diagnostics bit-equal across ranks; per-solve iteration counts
+    equal across ranks and within 1 of the single-device step's."""
+    import numpy as np
+    d0 = diags_by_rank[0]
+    for r, d in enumerate(diags_by_rank[1:], 1):
+        for step, (a, b) in enumerate(zip(d, d0)):
+            check(a.keys() == b.keys(), f"{label}: diagnostic keys, rank {r}")
+            for k in a:
+                check(np.array_equal(a[k], b[k]),
+                      f"{label}: diagnostic {k} of step {step + 1} differs "
+                      f"on rank {r}: {a[k]} vs {b[k]}")
+    worst = 0
+    for a, b in zip(d0, ref_diags):
+        for k in a:
+            if k.startswith("iters"):
+                dev = int(np.abs(np.asarray(a[k], np.int64)
+                                 - np.asarray(b[k], np.int64)).max())
+                worst = max(worst, dev)
+                check(dev <= 1, f"{label}: {k} {a[k]} vs single-device "
+                                f"{b[k]}")
+    its = {k: v.tolist() for k, v in d0[-1].items() if k.startswith("iters")}
+    print(f"{label}: diagnostics equal on every rank; iteration counts of "
+          f"the last step {json.dumps(its)}, largest deviation from the "
+          f"single-device step's {worst}")
+
+
+def phase_dist(torch, K):
+    """The distributed paths on ranks sharing the card over gloo (module
+    docstring, phase 15). Returns ({path: rank 0's launch counts}, the
+    kernels' rows at the paths' shapes: _dist_kernel_rows)."""
+    import pickle
+    import shutil
+    import tempfile
+    import multiprocessing
+    import numpy as np
+    from deepflame_torch import native
+    t_phase = time.perf_counter()
+    native.build()
+    tmp = tempfile.mkdtemp(prefix="dist-")
+    mesh_path = os.path.join(tmp, "jet64.pkl")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, daemon=True,
+                         args=(r, DIST_RANKS, os.path.join(tmp, "store"),
+                               tmp, mesh_path))
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        with _pool(6) as pool:
+            refs = {(c, d): pool.submit(_dist_ref, c, d)
+                    for c in ("fljet", "sjet", "tgv") for d in ("cpu", "cuda")}
+            # the full-width jet's blockMesh, built here while the ranks
+            # run their gates (the ranks load it for the 128 x 64 x 64 path)
+            t0 = time.perf_counter()
+            from deepflame_torch.cases import jet_blockmesh_dict
+            from deepflame_torch.mesh.blockmesh import (build_blockmesh,
+                                                        parse_blockmesh_dict)
+            gm = build_blockmesh(parse_blockmesh_dict(jet_blockmesh_dict(N_JET)))
+            with open(mesh_path + ".tmp", "wb") as f:
+                pickle.dump(gm, f, protocol=5)
+            os.replace(mesh_path + ".tmp", mesh_path)
+            del gm
+            print(f"dist: the {2 * N_JET} x {N_JET} x {N_JET} jet's blockMesh "
+                  f"built by the parent in {time.perf_counter() - t0:.1f} s")
+            refs = {c: f.result() for c, f in refs.items()}
+        deadline = time.monotonic() + DIST_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        results = []
+        for r in range(DIST_RANKS):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            res = {}
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    res = pickle.load(f)
+            results.append(res)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not hung, f"dist: ranks {hung} still running after {DIST_JOIN_S} "
+                    "s (killed)")
+    for r, res in enumerate(results):
+        check(res.get("ok"), f"dist: rank {r} failed (exit code "
+                             f"{procs[r].exitcode}):\n{res.get('error')}")
+    staged = results[0]["tgv96"]["timed"]["comm"]["staged"]
+    print(f"dist: {DIST_LABEL}: backend {results[0]['backend']}, halo "
+          f"planes staged through the host: {staged:.0f} a TGV step "
+          f"(all_reduce, all_gather and all_to_all take the card's "
+          f"tensors); gates {results[0]['gates_s']:.1f} s on rank 0; "
+          "single-device references " + json.dumps(
+              {"/".join(c): round(v[2], 1) for c, v in refs.items()}) + " s")
+
+    # ---- float64 gates: card (distributed) against CPU (single device)
+    for label, case, ranks in (("tgv (2,1,1)", "tgv", (0, 1)),
+                               ("tgv (2,2,1)", "tgv", (0, 1, 2, 3)),
+                               ("sjet (2,1,1)", "sjet", (2, 3)),
+                               ("fljet 4 ranks", "fljet", (0, 1, 2, 3))):
+        key = {"tgv (2,1,1)": "tgv-211", "tgv (2,2,1)": "tgv-221",
+               "sjet (2,1,1)": "sjet-211", "fljet 4 ranks": "fljet-4"}[label]
+        got = [results[r][key] for r in ranks]
+        ref_fields, ref_diags, _ = refs[case, "cpu"]
+        card_fields = refs[case, "cuda"][0]
+        flow = ("U", "phi") + (("phi_b",) if case == "fljet" else ())
+        jet = case != "tgv"
+        scalars = ("rho", "p", "ha", "Y", "T")
+        _field_gate(torch, f"dist {label}", got[0]["fields"], ref_fields,
+                    scalars + (() if jet else flow),
+                    1e-8, flow=flow if jet else (), flow_tol=1e-6)
+        _field_gate(torch, f"dist {label}", got[0]["fields"], card_fields,
+                    scalars + flow, DIST_SPLIT_TOL,
+                    what="distributed vs single-device, both on the card")
+        print(f"dist {label}: beside it, the single-device step on the card "
+              "vs the CPU's: " + json.dumps(
+                  {k: float(f"{v:.3e}") for k, v in _field_devs(
+                      torch, card_fields, ref_fields, scalars + flow).items()}))
+        _dist_iters_gate(f"dist {label}", [g["diags"] for g in got],
+                         ref_diags)
+    chem = [res["chem"] for res in results]
+    loc = [np.concatenate([c["local"][i] for c in chem]) for i in range(3)]
+    ref = chem[0]["ref"]
+    errs = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(loc, ref)]
+    print(f"dist chemistry: cross_shard solve of 4,096 cells on "
+          f"{DIST_RANKS} ranks against the global solve on the card: T, Y, "
+          f"RR deviation {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e} of the "
+          f"largest value; all_to_alls per solve "
+          f"{[c['all_to_all'] for c in chem]}")
+    check(errs[0] <= 1e-10 and errs[1] <= 1e-10 and errs[2] <= 1e-8,
+          f"dist chemistry: cross-shard solve deviates {errs}")
+    check(all(c["all_to_all"] == 2 for c in chem), "dist chemistry: "
+          "all_to_all count")
+
+    # ---- full-width paths
+    counts = {}
+    for key, label, need, cells in (
+            ("tgv96", f"dist stiff TGV {N_MAIN}^3 (4,1,1)",
+             ("helmholtz7_apply", "gj_inverse"), N_MAIN ** 3),
+            ("fl128", f"dist face-list jet {2 * N_JET} x {N_JET} x {N_JET} "
+             "(1,2,2) blocks", ("ell_matvec", "gj_inverse"),
+             2 * N_JET ** 3)):
+        runs = [res[key] for res in results]
+        r0 = runs[0]
+        ms = r0["timed"]["ms"]
+        print(f"{label}, float32, {DIST_LABEL}: built in "
+              f"{r0['build_s']:.1f} s, warm-up step {r0['warm_s']:.2f} s; "
+              f"{ms:.2f} ms/step, {cells / (ms / 1e3):.4e} cell-updates/s "
+              f"({cells} cells)")
+        for r, run in enumerate(runs):
+            t = run["timed"]
+            comm = {k: round(v, 1) for k, v in t["comm"].items()}
+            print(f"  rank {r}: launches per step " + json.dumps(
+                {k: v / (STEPS if key == "tgv96" else 1)
+                 for k, v in t["launches"].items()})
+                  + f"; collectives per step {json.dumps(comm)}; peak "
+                  f"{t['peak_gib']:.2f} GiB")
+            check(run["finite"] and run["changed"],
+                  f"{label}: rank {r}: non-finite or unchanged T")
+        if key == "tgv96":
+            for r, run in enumerate(runs):
+                d = run["dlb"]
+                print(f"  rank {r}, one step with dlb_cross_shard: "
+                      f"{d['ms']:.2f} ms, launches " + json.dumps(
+                          d["launches"]) + ", all_to_alls "
+                      f"{d['comm']['all_to_all']:.0f} "
+                      f"({d['comm']['all_to_all_bytes'] / 2**20:.2f} MiB)")
+            # the sphere lies in the middle ranks' blocks: stiff cells
+            # reach every rank through the balanced step
+            for r, run in enumerate(runs):
+                t, d = run["timed"]["launches"], run["dlb"]["launches"]
+                check(t["helmholtz7_apply"] > 0 and d["helmholtz7_apply"] > 0,
+                      f"{label}: helmholtz7_apply did not launch on rank {r}")
+                check(t["gj_inverse"] + d["gj_inverse"] > 0,
+                      f"{label}: gj_inverse did not launch on rank {r}")
+            print(f"  diagnostics: " + json.dumps(r0["diag"]) + "; with "
+                  "the balance: " + json.dumps(r0["diag_dlb"]))
+        else:
+            for r, run in enumerate(runs):
+                t = run["timed"]["launches"]
+                check(all(t[k] > 0 for k in need),
+                      f"{label}: {need} did not launch on rank {r}: {t}")
+            print(f"  diagnostics: " + json.dumps(r0["diag"])
+                  + f"; {r0['owned']} owned cells of {r0['n_loc']} slots "
+                  "on rank 0")
+        counts[f"dist-{key}"] = dict(r0["timed"]["launches"])
+    rows = _dist_kernel_rows(torch, K, results)
+    print(f"dist phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, rows
+
+
+def _dist_kernel_rows(torch, K, results) -> dict:
+    """Each kernel against its plain version at the shapes the full-width
+    paths launched it with on the ranks (_LaunchArgs): helmholtz7_apply's
+    padded form at every shape of the TGV's timed steps (the 24 x 96 x 96
+    rank block; float32, _helmholtz_row), ell_matvec on rank 0's own
+    connectivity of the face-list jet (its halo rows, pad faces left out;
+    _ell_figures), and gj_inverse (n = 10, float32, in a fresh worker) at
+    the smallest and largest drain over all ranks of the TGV's timed
+    steps, of its balanced step and of the jet's timed step. Returns
+    {"helmholtz": [rows], "ell": row, "gj": [rows]}, each row labelled
+    with its path."""
+    import numpy as np
+    g = torch.Generator(device="cuda").manual_seed(15)
+    out = {"helmholtz": [], "gj": []}
+    padded = set()
+    for res in results:
+        for (form, dt, args) in res["tgv96"]["timed"]["shapes"].get(
+                "helmholtz7_apply", {}):
+            check(form == "" and dt == "float32",
+                  f"dist TGV: a helmholtz7_apply launch of form {form!r} "
+                  f"in {dt}")
+            padded.add(args)
+    check(padded, "dist TGV: no padded helmholtz7_apply launch recorded")
+    for args in sorted(padded):
+        shape = tuple(int(v) for v in args[:3])
+        spacing = tuple(ih ** -0.5 if ih > 0 else 1.0 for ih in args[3:])
+        row = _helmholtz_row(torch, K, _helmholtz_sets(torch, g, shape,
+                                                       spacing))
+        row["path"] = "dist stiff TGV, (4, 1, 1) rank block"
+        print("helmholtz7_apply at the dist TGV's rank block: "
+              + json.dumps(row))
+        out["helmholtz"].append(row)
+
+    side, nbr = (torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+                 for a in results[0]["fl128"]["conn"])
+    launched = {args for (_, dt, args) in results[0]["fl128"]["timed"][
+        "shapes"].get("ell_matvec", {})}
+    check(launched == {tuple(nbr.shape)}, f"dist face-list jet: rank 0's "
+          f"ell_matvec launches {launched}, its connectivity "
+          f"{tuple(nbr.shape)}")
+    row = _ell_figures(torch, K, g, (None, side, nbr))
+    row["path"] = "dist face-list jet, rank 0's connectivity"
+    row["owned_rows"] = results[0]["fl128"]["owned"]
+    print("ell_matvec at the dist face-list jet's rank 0: " + json.dumps(row))
+    out["ell"] = row
+    del side, nbr
+
+    paths = {}
+    for key, sub, label in (("tgv96", "timed", "dist TGV drain"),
+                            ("tgv96", "dlb", "dist TGV balanced drain"),
+                            ("fl128", "timed", "dist face-list jet drain")):
+        lanes = []
+        for res in results:
+            for (_, dt, (n, L)) in res[key][sub]["shapes"].get(
+                    "gj_inverse", {}):
+                check(n == 10 and dt == "float32", f"{label}: gj_inverse "
+                      f"n = {n} in {dt}")
+                lanes.append(int(L))
+        check(lanes, f"{label}: no gj_inverse launch on any rank")
+        print(f"{label}: gj_inverse launched at {len(set(lanes))} lane "
+              f"counts over the ranks, {min(lanes)} to {max(lanes)}")
+        for L in {min(lanes), max(lanes)}:
+            paths.setdefault(L, []).append(label)
+    with _pool(1) as pool:
+        gj = pool.submit(_gj_rows_fresh, sorted(paths)).result()
+    for L, row in zip(sorted(paths), gj):
+        row["path"] = ", ".join(paths[L])
+        print(f"gj_inverse n=10 L={L} f32 ({row['path']}): " + json.dumps(row))
+        out["gj"].append(row)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -3626,7 +4210,7 @@ def main() -> int:
     ap.add_argument("--phases", metavar="LIST",
                     help="run only these of tci, sjet-pasr, sjet-edc, "
                          "light, hs, amr, fgm, spray, mist, fljet, hsfl, "
-                         "fgmfl and sprayfl (comma-separated; "
+                         "fgmfl, sprayfl and dist (comma-separated; "
                          "light needs tci and sjet-pasr; spray and mist run "
                          "their gates first) after the build, and end "
                          "without the result lines")
@@ -3708,6 +4292,9 @@ def main() -> int:
         if "sprayfl" in only:
             phase_sprayfl(torch, K, build_chamber(torch)[0])
             phase_done("sprayfl")
+        if "dist" in only:
+            phase_dist(torch, K)
+            phase_done("dist")
         print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
               f"phase {json.dumps(seconds)}")
         print(card)
@@ -3773,6 +4360,12 @@ def main() -> int:
     phase_done("fgmfl")
     counts["sprayfl"], ms["sprayfl"] = phase_sprayfl(torch, K, chamber)
     phase_done("sprayfl")
+    dist_counts, dist_rows = phase_dist(torch, K)
+    counts.update(dist_counts)
+    figures["helmholtz7_apply"]["dist_shapes"] = dist_rows["helmholtz"]
+    figures["ell_matvec"]["dist_shape"] = dist_rows["ell"]
+    figures["gj_inverse"]["path_shapes"] += dist_rows["gj"]
+    phase_done("dist")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

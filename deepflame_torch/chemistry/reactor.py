@@ -9,16 +9,23 @@ temperature or warm-start step into bins, each bin with its own drain.
 
 Control flow: the JAX `lax.cond` between the top-K compact path and the full
 sorted-binned path becomes one host read of the reject count and a Python
-branch. The cross-device load balance of the JAX package is single-device
-here and left out.
+branch.
+
+Cross-shard load balance (`solve_chemistry(cross_shard=True)` under an
+active shard group, the reference's DLB cell migration): each shard sorts
+its stiff lanes, deals them round-robin into one group per shard, and one
+`all_to_all` hands every shard an equal slice of every stiffness stratum; a
+second returns the results (`_stratified_cross_shard`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..constants import GAS_CONSTANT
+from ..parallel.context import current_axis
 from .integrator import (RosenbrockOptions, rk23_attempt_batched,
                          rosenbrock_integrate, rosenbrock_integrate_batched)
 from .kinetics import KineticsData, production_rates
@@ -113,15 +120,77 @@ class ChemistryResult(NamedTuple):
     dt_next: torch.Tensor | None = None   # (...,) warm-start step suggestion
 
 
+def _stratified_cross_shard(run, key, inputs, n_out, group):
+    """Cross-shard chemistry load balance: lanes sorted by stiffness `key`
+    (largest = stiffest), dealt round-robin into one group per shard, one
+    all_to_all so that every shard integrates an equal slice of every
+    stratum, `run` on the received lanes, and a second all_to_all (its own
+    inverse) back. inputs: (L, ...) tensors of one dtype, lane axis first
+    (and run's outputs: (L', ...) tensors of one dtype); lanes are
+    padded to a multiple of the shard count with zero lanes, which sort
+    first (key -inf) and must be inactive in `run` (t_end 0). Returns the
+    first n_out outputs of run, in the original lane order."""
+    L = inputs[0].shape[0]
+    P = group.size
+    pad = (-L) % P
+    Lp = L + pad
+
+    def pack(x):
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        return x
+
+    keyp = pack(key)
+    if pad:
+        keyp[L:] = float("-inf")
+    order = torch.argsort(keyp, stable=True)            # cold ... stiff
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(Lp, device=order.device)
+
+    def fwd(x):
+        xs = pack(x)[order]
+        g = xs.reshape((Lp // P, P) + xs.shape[1:]).transpose(0, 1)
+        return group.all_to_all(g).reshape((Lp,) + xs.shape[1:])
+
+    def bwd(y):
+        g = group.all_to_all(y.reshape((P, Lp // P) + y.shape[1:]))
+        ys = g.transpose(0, 1).reshape((Lp,) + y.shape[1:])
+        return ys[inv_order][:L]
+
+    # one all_to_all each way: the lanes' tensors side by side as columns
+    # (the JAX package exchanges them one by one; the values are the same)
+    received = _unstack(fwd(_stack(inputs)), inputs)
+    outs = run(*received)[:n_out]
+    return _unstack(bwd(_stack(outs)), outs)
+
+
+def _stack(ts) -> torch.Tensor:
+    """(L, ...) tensors of one dtype -> (L, sum of their widths)."""
+    return torch.cat([t.reshape(t.shape[0], -1) for t in ts], dim=1)
+
+
+def _unstack(x: torch.Tensor, like) -> tuple:
+    """The inverse of _stack, shapes (but the lane count) from `like`."""
+    out, c = [], 0
+    for t in like:
+        w = math.prod(t.shape[1:])
+        out.append(x[:, c:c + w].reshape((x.shape[0],) + t.shape[1:]))
+        c += w
+    return tuple(out)
+
+
 def solve_chemistry(thermo: ThermoData, kin: KineticsData, T, p, Y, dt,
                     opts: RosenbrockOptions = RosenbrockOptions(),
                     T_threshold: float = 200.0, n_bins: int = 32,
                     dt_start=None, fast_tier: bool = True,
-                    sort: str = "T") -> ChemistryResult:
+                    sort: str = "T",
+                    cross_shard: bool = False) -> ChemistryResult:
     """Advance chemistry in every cell by dt at constant pressure.
 
     T, p: (...,); Y: (..., ns); dt: float or per-cell tensor. Cells with
-    T < T_threshold are frozen."""
+    T < T_threshold are frozen. cross_shard: under an active shard group,
+    balance the stiff lanes across the shards (_stratified_cross_shard);
+    without a group it changes nothing."""
     batch_shape = T.shape
     ns = Y.shape[-1]
     Tf = T.reshape(-1)
@@ -156,9 +225,22 @@ def solve_chemistry(thermo: ThermoData, kin: KineticsData, T, p, Y, dt,
     else:
         t_ends_rem = t_ends
 
-    s1, dt_next = _integrate_binned(integrate_chunk, s0, pf, t_ends_rem,
-                                    dt0_f, ns, n_bins, fast_tier, sort, opts,
-                                    Tf_key=s0[:, 0])
+    def run_integration(s0, pf, t_ends_rem, dt0_f):
+        return _integrate_binned(integrate_chunk, s0, pf, t_ends_rem, dt0_f,
+                                 ns, n_bins, fast_tier, sort, opts,
+                                 Tf_key=s0[:, 0])
+
+    group = current_axis() if cross_shard else None
+    if group is not None:
+        # stiffness key: the warm-start step where given (a small converged
+        # step is stiff), else the temperature; inactive lanes coldest
+        neg_inf = torch.full_like(Tf, float("-inf"))
+        key = torch.where(t_ends_rem > 0,
+                          -dt0_f if dt_start is not None else Tf, neg_inf)
+        s1, dt_next = _stratified_cross_shard(
+            run_integration, key, (s0, pf, t_ends_rem, dt0_f), 2, group)
+    else:
+        s1, dt_next = run_integration(s0, pf, t_ends_rem, dt0_f)
     if fast_tier:
         s1 = torch.where(accepted[:, None], y_fast, s1)
         dt_next = torch.where(accepted, dt_fast, dt_next)

@@ -29,6 +29,11 @@ class CombustionModel:
     # by the warm-started controller step instead of temperature
     n_bins: int = 32
     sort: str = "T"
+    # cross-shard chemistry load balance under an active shard group (the
+    # reference's DLB, LoadBalancer.C:124-232): chemistry.reactor's
+    # stratified all_to_all lane exchange, so that a front inside one
+    # shard's block does not hold every shard up
+    dlb_cross_shard: bool = False
     # whether correct() reads `turb`: the low-Mach step computes the SGS k,
     # epsilon and nu only for models that do (JAX's jit drops them for the
     # others as dead code)
@@ -51,7 +56,8 @@ class Laminar(CombustionModel):
                                opts=self.ode_opts,
                                T_threshold=self.T_threshold,
                                n_bins=self.n_bins, sort=self.sort,
-                               dt_start=dt_start)
+                               dt_start=dt_start,
+                               cross_shard=self.dlb_cross_shard)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,8 +16,15 @@ a slice of the (nx, ny, nz) cell lattice and every scatter a slice add, and
 the implicit matrices become 7-point lattice stencils (ops/fv_facelist.py
 `plan_stencil`, run by the `stencil7_apply` kernel on the card). The
 constructors build their arrays in host numpy, face for face as the JAX
-package does. Shard-local (halo) meshes are not ported: `restrict` and
-`exchange` are the identity here.
+package does.
+
+Shard-local meshes (parallel.distributed_fl.FLDecomp): cells [0, n_own_max)
+are the shard's own (and pads), the rest halo copies of other shards' cells
+one face away; crossing faces exist on both shards. `w_own` marks the owned
+cells, `restrict` zeroes the other rows, and `exchange` refreshes the halo
+rows from their owners, point to point over the active shard group: the
+buffer of ring offset d goes to shard (r - d) % P and comes from (r + d) %
+P (`halo`). On one-device meshes both are the identity.
 """
 from __future__ import annotations
 
@@ -159,11 +166,30 @@ class FaceListMesh:
     ell_sign: torch.Tensor | None = None
     # tensor-product meshes: the shift plan of their face layout
     plan: ShiftPlan | None = None
+    # shard-local meshes: (n_cells,) 1.0 on owned cells, else 0; and
+    # {ring offset d: (send_idx (B_d,), recv_slot (B_d,))}: this shard
+    # sends x[send_idx] to shard (r - d) % P and scatters the buffer from
+    # (r + d) % P into recv_slot (pad slots = n_cells, dropped)
+    w_own: torch.Tensor | None = None
+    halo: dict | None = None
     # ell_face clamped to a valid face, int64: the gather index
     _ell_idx: torch.Tensor | None = dataclasses.field(
         init=False, default=None, repr=False, compare=False)
+    # the halo plan as exchange runs it: (d, send_idx, positions in the
+    # buffer of the real slots, those slots), int64 on the mesh's device
+    _halo_ops: tuple = dataclasses.field(
+        init=False, default=(), repr=False, compare=False)
 
     def __post_init__(self):
+        if self.halo is not None:
+            ops = []
+            for d in sorted(self.halo):
+                send, recv = (torch.as_tensor(t).cpu().long()
+                              for t in self.halo[d])
+                pos = torch.nonzero(recv < self.n_cells).reshape(-1)
+                ops.append(tuple([d] + [t.to(self.device)
+                                        for t in (send, pos, recv[pos])]))
+            object.__setattr__(self, "_halo_ops", tuple(ops))
         if self.n_faces == 0:
             return
         if self.ell_face is None:
@@ -202,24 +228,52 @@ class FaceListMesh:
         """Cell volumes for row scaling."""
         return self.volumes
 
-    def restrict(self, x: torch.Tensor) -> torch.Tensor:
-        """Zero non-owned rows: the identity on a one-device mesh."""
+    def restrict(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Zero the rows this shard does not own (halo and pad cells; `dim`
+        is x's cell dimension): their scatter sums are partial, and the
+        owning shard has them whole. `where`, not a multiply, so that a
+        non-finite value in a dropped row cannot leak. The identity on a
+        one-device mesh."""
+        if self.w_own is None:
+            return x
+        dim = dim % x.dim()
+        own = (self.w_own > 0).reshape((-1,) + (1,) * (x.dim() - dim - 1))
+        return torch.where(own, x, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+
+    def exchange(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Refresh the halo rows of x (cell dimension `dim`) from the
+        shards that own them: one point-to-point message each way per ring
+        offset, all in one batch (the reference's processor-patch exchange,
+        the JAX package's ppermute). The identity on a one-device mesh or
+        with no shard group active."""
+        if self.halo is None:
+            return x
+        from ..parallel.context import current_axis
+        g = current_axis()
+        if g is None:
+            return x
+        dim = dim % x.dim()
+        P, r = g.size, g.rank
+        bufs = g.sendrecv([(x.index_select(dim, send), (r - d) % P,
+                            (r + d) % P, 16 + d)
+                           for d, send, _, _ in self._halo_ops])
+        for (_, _, pos, slot), buf in zip(self._halo_ops, bufs):
+            x = x.index_copy(dim, slot, buf.index_select(dim, pos))
         return x
 
-    def exchange(self, x: torch.Tensor) -> torch.Tensor:
-        """Refresh halo rows: the identity on a one-device mesh."""
-        return x
-
-    def ell_connectivity(self, width: int = 6):
+    def ell_connectivity(self, width: int = 6, exclude=None):
         """ELLPACK cell->face adjacency, the SpMV layout of `FvMatrixFL.ell`:
         (face_ids (n, w) int32, -1 padding; side (n, w) float64 {+1 owner,
         -1 neighbour, 0 pad}; nbr_ids (n, w) int32, the cell across each
-        face, padded with the row's own index), on the mesh's device."""
+        face, padded with the row's own index), on the mesh's device.
+        `exclude`: a (nf,) mask of faces to leave out (a shard-local mesh's
+        pad faces)."""
         own = self.owner.cpu().numpy()
         nei = self.neighbour.cpu().numpy()
         n = self.n_cells
         nf = own.shape[0]
-        fidx, sgn = ell_arrays(own, nei, n, width)
+        fidx, sgn = ell_arrays(own, nei, n, width, exclude)
         f_safe = np.minimum(fidx, max(nf - 1, 0))
         self_col = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None],
                                    fidx.shape)

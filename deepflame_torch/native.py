@@ -1,13 +1,15 @@
 """ctypes bindings of the port's native (C++) host components.
 
-Port of deepflame_tpu/native.py's FlaRe table parser
-(`csrc/flare_table.cpp`, the port's own copy of the source). At first use
+Port of deepflame_tpu/native.py: the FlaRe table parser
+(`csrc/flare_table.cpp`) and the partition planners (`csrc/partition.cpp`),
+the port's own copies of the sources. At first use
 `build()` compiles it with g++ into a shared library under
 `<repo>/build/native/`, named by a hash of the sources and flags (an edited
 source is rebuilt), as
 `ops.kernels` builds the CUDA kernels. Nothing here falls back to Python: a
 failed build raises, and the callers that have a Python path
-(`read_flare_table(use_native=False)`) take it only when asked.
+(`read_flare_table(use_native=False)`, the planners' numpy versions) take
+the native one only when asked (`use_native=True`).
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["build", "load_native", "native_available", "flare_table_native",
-           "BUILD_DIR"]
+           "partition_balance", "partition_slabs", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flare_table.cpp",)
+SOURCES = ("flare_table.cpp", "partition.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
@@ -48,7 +50,7 @@ def build() -> Path:
         return so
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
-        raise RuntimeError("g++ not found: the native table parser is built "
+        raise RuntimeError("g++ not found: the native library is built "
                            "with g++")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -95,6 +97,10 @@ def load_native():
         lib.ft_read_tables.argtypes = [ctypes.c_void_p,
                                        np.ctypeslib.ndpointer(np.float64)]
         lib.ft_close.argtypes = [ctypes.c_void_p]
+        lib.part_balance.argtypes = [ctypes.c_int] * 4 + [
+            np.ctypeslib.ndpointer(np.int32)]
+        lib.part_slabs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                   np.ctypeslib.ndpointer(np.int32)]
         _LIB = lib
         return lib
 
@@ -132,3 +138,49 @@ def flare_table_native(path: str):
     finally:
         lib.ft_close(h)
 
+
+
+def partition_balance(nx: int, ny: int, nz: int, n_devices: int,
+                      use_native: bool = False) -> tuple[int, int, int]:
+    """Device grid (dx, dy, dz) of n_devices over an nx x ny x nz block that
+    minimizes the halo surface per device (two faces per split axis), with
+    a penalty of 1000 per remainder cell; the first best in (dx, dy) order.
+    use_native: the C++ planner (built at first use) instead of numpy."""
+    if use_native:
+        out = np.zeros(3, np.int32)
+        load_native().part_balance(nx, ny, nz, n_devices, out)
+        return tuple(int(x) for x in out)
+    best, best_cost = (n_devices, 1, 1), float("inf")
+    for dx in range(1, n_devices + 1):
+        if n_devices % dx:
+            continue
+        rem = n_devices // dx
+        for dy in range(1, rem + 1):
+            if rem % dy:
+                continue
+            dz = rem // dy
+            if dx > nx or dy > ny or dz > nz:
+                continue
+            cost = ((2 * (ny // dy) * (nz // dz) if dx > 1 else 0)
+                    + (2 * (nx // dx) * (nz // dz) if dy > 1 else 0)
+                    + (2 * (nx // dx) * (ny // dy) if dz > 1 else 0)
+                    + 1000 * (nx % dx + ny % dy + nz % dz))
+            if cost < best_cost:
+                best, best_cost = (dx, dy, dz), cost
+    return best
+
+
+def partition_slabs(n: int, n_devices: int,
+                    use_native: bool = False) -> np.ndarray:
+    """Split points (n_devices + 1,) of n cells into n_devices contiguous
+    slabs whose sizes differ by at most one (the first n % n_devices one
+    larger). use_native: the C++ planner instead of numpy."""
+    if use_native:
+        out = np.zeros(n_devices + 1, np.int32)
+        load_native().part_slabs(n, n_devices, out)
+        return out.astype(int)
+    base, rem = divmod(n, n_devices)
+    starts = [0]
+    for d in range(n_devices):
+        starts.append(starts[-1] + base + (1 if d < rem else 0))
+    return np.asarray(starts)

@@ -7,7 +7,9 @@ coefficients are also kept analytically (`StencilPart`), so that
 ghosts folded into D. The Krylov matvec is then one call of the stencil
 kernel (`ops.kernels.stencil7_apply`) and diag(A) = D is exact; `diag()`
 reads it there, and takes the JAX package's coloring probes only where a
-term has no stencil.
+term has no stencil or a side is a processor boundary: there, as in the JAX
+package, `stencil()` gives None and the matrix applies through `pad_field`
+(the neighbour shard's ghost planes) and its terms.
 
 Fields are (..., nx, ny, nz): operators act on the last three dimensions, so
 one FvMatrix can carry a leading batch of species or velocity components
@@ -40,6 +42,13 @@ _TVD = ("limitedLinear", "limitedLinear01", "vanLeer", "minmod", "MUSCL",
 # source of an FvMatrix is exactly zero
 _HOMOGENEOUS_KINDS = ("cyclic", "empty", "zeroGradient", "symmetry",
                       "symmetryNegate", "extrapolated")
+
+
+def _homogeneous(bc) -> bool:
+    """Whether the BC's ghost has no inhomogeneous part (b = 0)."""
+    if bc.kind == "processor":
+        return bc.value[1].kind in _HOMOGENEOUS_KINDS
+    return bc.kind in _HOMOGENEOUS_KINDS
 
 
 def _sl(f, axis: int, start: int, stop: int):
@@ -306,9 +315,12 @@ class FvMatrix:
     def stencil(self):
         """(D, lo, hi) cell coefficients with BCs folded into D, all of one
         shape (the batch shape of the equation), or None when a term has no
-        stencil. Cyclic axes stay in lo/hi: the stencil wraps them exactly.
-        A BC's ghost coefficient a may differ per lane (stacked BCs)."""
+        stencil or a side is a processor boundary. Cyclic axes stay in
+        lo/hi: the stencil wraps them exactly. A BC's ghost coefficient a
+        may differ per lane (stacked BCs)."""
         if self.parts is None or any(p is None for p in self.parts):
+            return None
+        if any(bc.kind == "processor" for pair in self.bcs for bc in pair):
             return None
         zeros = torch.zeros(self._shape(), dtype=self.source.dtype,
                             device=self.source.device)
@@ -352,9 +364,9 @@ class FvMatrix:
 
     def rhs(self):
         """b = source - A(boundary part). With only homogeneous BC kinds the
-        boundary part is exactly zero and b is the source."""
-        if all(bc.kind in _HOMOGENEOUS_KINDS for pair in self.bcs
-               for bc in pair):
+        boundary part is exactly zero and b is the source (a processor side
+        counts by its domain-edge BC: its ghost planes are zero there)."""
+        if all(_homogeneous(bc) for pair in self.bcs for bc in pair):
             return self.source
         Pb = pad_field(torch.zeros(self._shape(), dtype=self.source.dtype,
                                    device=self.source.device),
@@ -368,14 +380,22 @@ class FvMatrix:
         """Exact diagonal of A: D of the folded stencil where every term has
         one, else the JAX package's coloring probes (cells of one color
         along every axis are never neighbours, so masked matvecs recover
-        diag(A); period 2 per axis, 3 or n on an odd cyclic axis)."""
+        diag(A); period 2 per axis, 3 or n on an odd cyclic axis, 2 on a
+        processor axis, whose local extent must then be even: the global
+        parity of a cell is then its local parity on every shard)."""
         st = self.stencil()
         if st is not None:
             return st[0]
         shape = self._shape()
         periods = []
         for ax, n in enumerate(self.mesh.shape):
-            if self.bcs[ax][0].kind != "cyclic" or n % 2 == 0 or n == 1:
+            if self.bcs[ax][0].kind == "processor":
+                if n % 2 != 0:
+                    raise ValueError("processor-split axis needs an even "
+                                     f"local extent for the diagonal "
+                                     f"coloring (got {n})")
+                periods.append(2)
+            elif self.bcs[ax][0].kind != "cyclic" or n % 2 == 0 or n == 1:
                 periods.append(2 if n > 1 else 1)
             else:
                 periods.append(3 if n % 3 == 0 else n)

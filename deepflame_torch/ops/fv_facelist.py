@@ -343,7 +343,7 @@ class FvMatrixFL:
         m = self.mesh
         if m.plan is not None:
             return self._apply_plan(x)
-        x = m.exchange(x)
+        x = m.exchange(x, dim=-1)
         # owner rows accumulate upper*x[nei]; neighbour rows lower*x[own]
         off = m.scatter_both(self.upper * x[..., m.neighbour],
                              self.lower * x[..., m.owner], lead=True)
@@ -439,7 +439,8 @@ class FvMatrixFL:
                   coef: torch.Tensor) -> torch.Tensor:
         """Matvec through the ELL layout, equal to apply(): the ell_matvec
         kernel on the card, its plain version on the CPU."""
-        return ell_matvec(self.mesh.exchange(x), self.diag_c, nbr, coef)
+        return ell_matvec(self.mesh.exchange(x, dim=-1), self.diag_c, nbr,
+                          coef)
 
 
 def _empty_matrix(m: FaceListMesh, like: torch.Tensor) -> FvMatrixFL:

@@ -324,13 +324,14 @@ def ghost_rule(bcs, mesh) -> GhostRule | None:
     """The GhostRule of a FieldBCs ((x_lo, x_hi), (y_lo, y_hi), (z_lo,
     z_hi)): pad_field's homogeneous relations (BC.coeffs(h, side)[0]). None
     where a side's factor is a tensor (an affine BC with a per-face a): that
-    field takes the padded form. Processor boundaries raise, as in
-    pad_field."""
+    field takes the padded form. Processor boundaries raise: the kernel
+    cannot see a neighbour shard's plane (helmholtz_operator pads them)."""
     cyclic, a = [], []
     for axis in range(3):
         lo, hi = bcs[axis]
         if lo.kind == "processor" or hi.kind == "processor":
-            raise NotImplementedError("processor boundaries are multi-device")
+            raise NotImplementedError("processor boundaries take the padded "
+                                      "form (helmholtz_operator)")
         if lo.kind == "cyclic" or hi.kind == "cyclic":
             if lo.kind != hi.kind:
                 raise ValueError("cyclic BC must be paired on both sides")
@@ -396,9 +397,11 @@ def helmholtz7_apply_bc(x, gamma, diag, spacing, rule: GhostRule):
 def helmholtz_operator(bcs, mesh):
     """The Helmholtz matvec of a field with BCs `bcs` on `mesh`,
     homogeneous ghosts: (x, gamma, diag) -> out. The BC form with the BCs'
-    ghost rule, built here once; where a BC's ghost factor is per face (no
-    rule), pad_field and the padded form."""
-    rule = ghost_rule(bcs, mesh)
+    ghost rule, built here once; where a side is a processor boundary (its
+    ghosts are the neighbour shard's plane) or a BC's ghost factor is per
+    face (no rule), pad_field and the padded form."""
+    proc = any(bc.kind == "processor" for pair in bcs for bc in pair)
+    rule = None if proc else ghost_rule(bcs, mesh)
     if rule is None:
         return lambda x, gamma, diag: helmholtz7_apply(
             pad_field(x, bcs, mesh, homogeneous=True), gamma, diag,

@@ -15,6 +15,12 @@ The loop is Python and reads "any lane active" back to the host every
 results and counts match the JAX loop. Inside `parallel.context.compensated()`
 the per-lane reductions are compensated sums (`ops.compensated.sum2`), as the
 JAX package's gsum is there.
+
+Under an active shard group (`parallel.context.shard_axis`) each per-lane
+reduction is the local one followed by one `all_reduce` of the lane vector,
+and a mean counts the cells of every shard (the owned cells only where a
+`cell_weight` is active): every rank sees the same residuals, so every rank
+runs the same trips and reads the same "any lane active".
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..parallel.context import compensated_on
+from ..parallel.context import (compensated_on, current_axis,
+                                current_cell_weight)
 from .compensated import sum2
 from .kernels import stencil7_apply
 
@@ -42,14 +49,25 @@ class SolverResult(NamedTuple):
 
 def _vsum(x, nd):
     if compensated_on():
-        return sum2(x, nd=nd)
-    return x.sum(dim=tuple(range(-nd, 0)))
+        s = sum2(x, nd=nd)
+    else:
+        s = x.sum(dim=tuple(range(-nd, 0)))
+    g = current_axis()
+    return g.all_reduce(s) if g is not None else s
 
 
 def _vmean(x, nd):
-    if compensated_on():
-        return sum2(x, nd=nd) / math.prod(x.shape[x.dim() - nd:])
-    return x.mean(dim=tuple(range(-nd, 0)))
+    g = current_axis()
+    if g is None:
+        if compensated_on():
+            return sum2(x, nd=nd) / math.prod(x.shape[x.dim() - nd:])
+        return x.mean(dim=tuple(range(-nd, 0)))
+    w = current_cell_weight()
+    if w is not None and nd == 1 and x.shape[-1] == w.shape[0]:
+        # a shard-local face-list field: average the owned cells
+        num = _vsum(torch.where(w > 0, x, torch.zeros_like(x)), nd)
+        return num / g.all_reduce(w.sum())
+    return _vsum(x, nd) / (math.prod(x.shape[x.dim() - nd:]) * g.size)
 
 
 def _dot(a, b, nd):
@@ -217,13 +235,28 @@ def solve_fvmatrix(eqn, x0, symmetric: bool = False, tol: float = 1e-7,
         d = torch.broadcast_to(d, shape)
         d_inv = 1.0 / torch.where(d.abs() > 1e-300, d, torch.ones_like(d))
         solver = cg if symmetric else bicgstab
-        return solver(eqn.apply, torch.broadcast_to(eqn.rhs(), shape),
-                      torch.broadcast_to(x0, shape).contiguous(),
+        b, apply = torch.broadcast_to(eqn.rhs(), shape), eqn.apply
+        m = eqn.mesh
+        if m.w_own is not None:
+            # a shard-local mesh: halo and pad rows are not this shard's
+            # equations, so every reduction sums the owned rows only
+            b = m.restrict(b, dim=-1)
+            apply = lambda x: m.restrict(eqn.apply(x), dim=-1)
+        return solver(apply, b, torch.broadcast_to(x0, shape).contiguous(),
                       lambda r: d_inv * r, tol, rel_tol, max_iter, nd=1)
     st = eqn.stencil() if stencil is None else stencil
     if st is None:
-        raise NotImplementedError("solve_fvmatrix needs 7-point stencil "
-                                  "coefficients for every term")
+        if not any(bc.kind == "processor" for pair in eqn.bcs for bc in pair):
+            raise NotImplementedError("solve_fvmatrix needs 7-point stencil "
+                                      "coefficients for every term")
+        # a processor boundary: the padded matvec and the coloring
+        # diagonal, as the JAX package
+        d = eqn.diag()
+        d_inv = 1.0 / torch.where(d.abs() > 1e-300, d, torch.ones_like(d))
+        solver = cg if symmetric else bicgstab
+        return solver(eqn.apply, torch.broadcast_to(eqn.rhs(), d.shape),
+                      torch.broadcast_to(x0, d.shape).contiguous(),
+                      lambda r: d_inv * r, tol, rel_tol, max_iter)
     D, lo, hi = st
     b = eqn.rhs()
     apply = lambda x: stencil7_apply(x, D, lo, hi)

@@ -32,8 +32,12 @@ kernel. A RAS model (turbulence.ras) carries its (k, eps) or (k, omega) in
 end of the step. `step(s, dt, sources)` takes the spray cloud's Srho, SU,
 Sh and SY (added to species SY_index) where the JAX step puts them.
 
-Not in this slice: processor (multi-device) boundaries. The JAX config's
-`use_pallas` chose a TPU kernel and has no counterpart here.
+A shard of a distributed step (parallel.distributed) is this solver on its
+block of the mesh with processor BCs on the split axes: its matrices then
+apply through pad_field (stencil() gives way, the diagonal comes from the
+coloring probes), the pressure CG through the padded Helmholtz kernel, and
+the fixed boundary fluxes apply on the first and last shard only. The JAX
+config's `use_pallas` chose a TPU kernel and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from ..chemistry.thermo import ThermoData
 from ..chemistry.transport import TransportData
 from ..combustion.basic import CombustionModel
 from ..mesh.energy_bcs import resolve_energy_bcs
-from ..mesh.structured import (StructuredMesh, cyclic, empty, pad_field,
+from ..mesh.structured import (StructuredMesh, _edge_masks, cyclic, empty,
+                               pad_field, processor, processor_parts,
                                stack_bcs, zero_gradient)
 from ..ops.fv import (_face_diff, div_explicit, div_flux, face_pair,
                       fvm_ddt, fvm_div, fvm_laplacian, fvm_source_implicit,
@@ -174,8 +179,12 @@ class LowMachSolver:
     def bcs_coeff(self):
         """Value-neutral BCs for interpolating coefficient fields to faces:
         one-sided extrapolation at physical boundaries, exact wrap on cyclic
-        axes."""
+        axes. A processor side keeps its neighbour shard's halo; only its
+        domain-edge BC is made neutral."""
         def neutral(bc):
+            if bc.kind == "processor":
+                name, gbc = processor_parts(bc)
+                return processor(name, neutral(gbc))
             if bc.kind == "cyclic":
                 return cyclic()
             if bc.kind == "empty":
@@ -485,19 +494,30 @@ class LowMachSolver:
                              stencil=st)
         # H = b - (A - D) x excludes the pressure gradient, which the matrix
         # carries in its source for the solve: add it back
-        D, lo, hi = st
-        H = eqn.rhs() - (stencil7_apply(res.x, D, lo, hi) - D * res.x) + gp
+        if st is not None:
+            D, lo, hi = st
+            Ax = stencil7_apply(res.x, D, lo, hi)
+        else:                               # processor sides
+            D = eqn.diag()
+            Ax = eqn.apply(res.x)
+        H = eqn.rhs() - (Ax - D * res.x) + gp
         if stats is not None:
             stats["iters_U"] = res.iterations.max()
         u_diag = D[0]
         return res.x, [H[c] / u_diag for c in range(3)], 1.0 / u_diag
 
     def _fix_boundary_fluxes(self, phi, rho_f):
-        """Impose prescribed mass fluxes on fixed-velocity boundary faces."""
+        """Impose prescribed mass fluxes on fixed-velocity boundary faces.
+        On a processor axis only the first (low side) and the last shard
+        (high side) hold a domain boundary: elsewhere the face is interior."""
         out = list(phi)
         for ax in range(3):
             for side in (0, 1):
                 bc = self.bcs_U[ax][ax][side]   # normal component, this axis
+                if bc.kind == "processor":
+                    name, bc = processor_parts(bc)
+                    if not _edge_masks(name)[side]:
+                        continue
                 if bc.kind in ("fixedValue", "symmetryNegate", "inletOutlet"):
                     u_bc = 0.0 if bc.kind == "symmetryNegate" else bc.value
                     f = out[ax].clone()
@@ -562,7 +582,8 @@ class LowMachSolver:
                                                       coeff_d, rhorAUf, dtype)
                 M_inv = M_inv_mg
             else:
-                d_p = eqn_p.stencil()[0]
+                st_p = eqn_p.stencil()
+                d_p = st_p[0] if st_p is not None else eqn_p.diag()
                 d_inv = 1.0 / torch.where(d_p.abs() > 1e-300, d_p,
                                           torch.ones_like(d_p))
                 M_inv = lambda r: d_inv * r

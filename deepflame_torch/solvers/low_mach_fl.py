@@ -19,7 +19,9 @@ package vmaps the scalar solve). The pressure CG runs on the lattice with
 the V/V_mean row scaling folded into the stencil on plan meshes; otherwise,
 with `p_ell` set, its matvec is the ELLPACK SpMV kernel `ell_matvec` on the
 card. `p_mg` (ops.amg_fl.make_amg_fl) preconditions it with the
-aggregation-AMG V-cycle instead of Jacobi. RAS: k-epsilon, standard or RNG
+aggregation-AMG V-cycle instead of Jacobi (on one device: a shard of
+parallel.distributed_fl takes Jacobi, its reductions over the shard group
+and its halo rows refreshed by the mesh's `exchange`). RAS: k-epsilon, standard or RNG
 (`rng_keps_kwargs`), with `m_k`, `m_eps` and optional face-list wall
 functions (turbulence.wall_functions_fl); (k, eps) travel in the state's
 `turb`. Spray `sources` (Srho, SU, Sh, SY at SY_index) enter continuity,
@@ -595,9 +597,10 @@ class LowMachSolverFL:
             else:
                 apply_v = lambda x: m.restrict(eqn_p.apply(x) * Vn)
                 d_p = eqn_p.diag() * Vn
-            if self.p_mg is not None:
+            if self.p_mg is not None and m.w_own is None:
                 # aggregation-AMG V-cycle on the flat vector (PCG is
-                # invariant to the scalar scaling of M)
+                # invariant to the scalar scaling of M); a shard-local mesh
+                # takes Jacobi, as the JAX package's
                 M_flat = self.p_mg.preconditioner(eqn_p, m.volumes)
                 M_inv = M_flat if plan_shape is None else (
                     lambda R: M_flat(R.reshape(-1)).reshape(plan_shape))

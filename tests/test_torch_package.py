@@ -33,7 +33,7 @@ def test_port_sources_import_no_jax():
     csrc = os.path.join(ROOT, "deepflame_torch", "csrc")
     cpp = [os.path.join(csrc, n) for n in os.listdir(csrc)
            if n.endswith(".cpp")]
-    assert len(cpp) == 1
+    assert len(cpp) == 2
     assert not [f for f in cpp
                 if re.search(r"jax|deepflame_tpu", open(f).read())]
 
@@ -52,6 +52,8 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.ops.fv_facelist, deepflame_torch.ops.multigrid\n"
         "import deepflame_torch.ops.compensated\n"
         "import deepflame_torch.solvers.low_mach_fl\n"
+        "import deepflame_torch.parallel.distributed\n"
+        "import deepflame_torch.parallel.distributed_fl\n"
         "import deepflame_torch.chemistry.real_gas, deepflame_torch.ops.lts\n"
         "import deepflame_torch.runtime.openfoam_io\n"
         "import deepflame_torch.runtime.platform\n"
@@ -227,20 +229,10 @@ def test_high_speed_batch_axis_leaves_the_unbatched_step_unchanged():
 
 # Names of JAX modules' __all__ the port does not export yet, each with the
 # ROADMAP section A queue that ports it. Nothing else may be missing.
-QUEUED = {
-    "native": {"partition_balance": "A15", "partition_slabs": "A15"},
-    "mesh.structured": {"processor": "A15", "processor_parts": "A15"},
-    "parallel": {n: "A15" for n in (
-        "DistLowMachState", "DistributedLowMach", "current_axis", "gsize",
-        "localize_bcs", "localize_solver", "shard_axis")},
-    "parallel.context": {n: "A15" for n in (
-        "cell_weight", "current_axis", "current_cell_weight", "gsize",
-        "shard_axis")},
-}
+QUEUED = {}
 # JAX modules with no counterpart in the port yet, each with its ROADMAP
 # section A queue; nothing else of the JAX package may be missing
-QUEUED_MODULES = {"parallel.distributed": "A15",
-                  "parallel.distributed_fl": "A15"}
+QUEUED_MODULES = {}
 # JAX modules whose port counterpart has another name: the TPU kernels'
 # module and the port's hand-written CUDA kernels' module
 COUNTERPART = {"ops.pallas_kernels": "ops.kernels"}
