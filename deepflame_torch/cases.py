@@ -18,13 +18,20 @@ them: the structured jet on its shift-plan mesh
 theirs (`detonation_2d_h2_fl`, `sandia_d_fgm_2d_fl`, the latter with RNG
 k-epsilon), and the aachenBomb chamber as a blockMesh hex block with the
 cloud on an overlay grid (`aachen_bomb_3d_fl`, kEpsilon with wall
-functions).
+functions); and the inlet-anchored 1D premixed flame
+(`flame_1d_anchored`, examples/flame_1d_anchored.py) with its readings
+(`flame_1d_diagnostics`), and the reference's Tu500K-Phi1 closed loop of a
+DF-ODENet against Laminar chemistry (`dnn_closed_loop_flame`,
+`closed_loop_compare`, `harvest_states`; examples/flame_dnn_closed_loop.
+py).
 
 Each returns (solver, state) on `device` (default: the CUDA card); the Sod
-tube also its run plan; the AMR cases (amr, state).
+tube also its run plan; the AMR cases (amr, state); the 1D flames also
+their dt and an info dict.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -34,7 +41,9 @@ import torch
 
 from .chemistry import load_mechanism, make_kinetics, make_thermo, make_transport
 from .chemistry.integrator import RosenbrockOptions
-from .chemistry.dnn import LAYERS, DFODENet, init_params
+from .chemistry.dnn import LAYERS, DFODENet, init_params, load_npz_checkpoint
+from .chemistry.kinetics import production_rates
+from .chemistry.reactor import ignite
 from .combustion import DNNChemistry, Laminar
 from .constants import GAS_CONSTANT
 from .lagrangian.cloud import ConeInjector, ManualInjector, SprayCloud
@@ -45,12 +54,14 @@ from .mesh import (StructuredMesh, build_blockmesh, cyclic, empty, fixed_value,
 from .mesh.facelist import from_structured
 from .ops.amg_fl import make_amg_fl
 from .solvers import LowMachConfig, LowMachSolver, LowMachSolverFL
+from .solvers.low_mach import LowMachState
 from .solvers.high_speed import HighSpeedConfig, HighSpeedSolver
 from .solvers.high_speed_fl import HighSpeedFLState, HighSpeedSolverFL
 from .solvers.low_mach_fl import rng_keps_kwargs
 from .solvers.spray import HighSpeedSpraySolver, SprayFLSolver, SpraySolver
 from .turbulence import KEpsilon, sigma_model
 from .turbulence.wall_functions_fl import make_wall_functions_fl
+from .utils.flame_speed import flame_position, flame_thickness
 
 __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "reacting_hot_spot_2d", "jet_blockmesh_dict", "jet_inlet_profiles",
@@ -61,7 +72,9 @@ __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "sandia_d_fgm_2d", "AACHEN_FLOW_PROFILE", "AACHEN_DT",
            "aachen_bomb_3d", "watermist_detonation_1d",
            "jet_flame_3d_les_plan", "detonation_2d_h2_fl",
-           "sandia_d_fgm_2d_fl", "aachen_blockmesh_dict", "aachen_bomb_3d_fl"]
+           "sandia_d_fgm_2d_fl", "aachen_blockmesh_dict", "aachen_bomb_3d_fl",
+           "flame_1d_anchored", "flame_1d_diagnostics",
+           "dnn_closed_loop_flame", "closed_loop_compare", "harvest_states"]
 
 
 def _fresh_mixture(mech):
@@ -999,3 +1012,233 @@ def aachen_bomb_3d_fl(mech_path: str, n_xz: int = 41, n_y: int = 100,
     n = gm.n_cells
     return solver, solver.initial_state(
         np.full(n, 5e6), np.full(n, 800.0), Y, k0=1.0, eps0=90.0)
+
+
+# 1D premixed flames anchored at an inlet: the mixture flows in at u_in,
+# products leave through a pressure outlet, and the front settles where
+# consumption balances inflow (examples/flame_1d_anchored.py; the reference's
+# Tu500K-Phi1 DNN-chemistry case as examples/flame_dnn_closed_loop.py runs it)
+FLAME_P0 = 101325.0
+FLAME_IGNITION_TIME = 5e-3     # the 0D run that gives the burnt composition
+
+
+def _premixed(mech, fuel: str, phi: float) -> np.ndarray:
+    """Fuel/air mass fractions at equivalence ratio phi (H2 + 0.5 O2, or
+    CH4 + 2 O2; 3.76 N2 a O2)."""
+    nu_O2 = 0.5 if fuel == "H2" else 2.0
+    X = np.zeros(mech.n_species)
+    X[mech.species_index(fuel)] = phi
+    X[mech.species_index("O2")] = nu_O2
+    X[mech.species_index("N2")] = nu_O2 * 3.76
+    W = np.asarray(mech.molecular_weights)
+    return X * W / (X * W).sum()
+
+
+def _anchored_flame(mech_path, n, length, u_in, T_u, phi, fuel, dtype,
+                    device, T_ignite, ignite_opts, T_guess, models, Y_burnt):
+    """The examples' shared construction: the burnt side from a 0D ignition
+    at T_ignite (or Y_burnt), at the temperature of the unburnt enthalpy;
+    the [n, 1, 1] box with empty sides; fixedValue U, h, rho and Y at the
+    inlet, fixedValue p at the outlet; a tanh profile at 0.45 L, 6 cells
+    wide, and the mass-flux-consistent velocity. `models`: {name:
+    make(thermo, kinetics, ode_opts)}, one LowMachSolver each. Returns
+    ({name: solver}, state, info)."""
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    dev = mech.device
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    ns = mech.n_species
+    iF, iN2 = mech.species_index(fuel), mech.species_index("N2")
+    Yu = _premixed(mech, fuel, phi)
+    if Y_burnt is None:
+        _, _, Yb_t = ignite(th, kin, T_ignite, FLAME_P0, t(Yu),
+                            FLAME_IGNITION_TIME, opts=ignite_opts)
+        Yb = Yb_t[-1]
+    else:
+        Yb = (Y_burnt if isinstance(Y_burnt, torch.Tensor)
+              else torch.as_tensor(np.array(Y_burnt))).to(dtype=dtype,
+                                                          device=dev)
+    h_u = th.h_mass(t(T_u), t(Yu))
+    T_b = float(th.T_from_h(h_u, Yb, t(T_guess)))
+    mesh = StructuredMesh.box([length, length / n, length / n], [n, 1, 1],
+                              device=dev)
+    e = (empty(), empty())
+    bU = ((fixed_value(u_in), zero_gradient()), e, e)
+    bU0 = ((fixed_value(0.0), zero_gradient()), e, e)
+    bp = ((zero_gradient(), fixed_value(FLAME_P0)), e, e)
+    bh = ((fixed_value(float(h_u)), zero_gradient()), e, e)
+    rho_u = float(th.rho(t(FLAME_P0), t(T_u), t(Yu)))
+    brho = ((fixed_value(rho_u), zero_gradient()), e, e)
+    bY = [((fixed_value(float(Yu[k])), zero_gradient()), e, e)
+          for k in range(ns)]
+    f64 = dtype == torch.float64
+    ode_opts = RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
+                                 atol=1e-12 if f64 else 1e-8,
+                                 max_steps=20000, grow=10.0)
+    solvers = {name: LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr,
+        combustion=make(th, kin, ode_opts), bcs_U=(bU, bU0, bU0), bcs_p=bp,
+        bcs_h=bh, bcs_Y=bY, bcs_rho=brho,
+        config=LowMachConfig(chemistry=True, inert_index=iN2))
+        for name, make in models.items()}
+    Xc = mesh.cell_centers(dtype)[0]
+    prof = 0.5 * (1.0 + torch.tanh((Xc - 0.45 * length) / (6.0 * mesh.dx)))
+    T0 = T_u + (T_b - T_u) * prof
+    Y0 = (t(Yu)[:, None, None, None] * (1 - prof)
+          + Yb[:, None, None, None] * prof)
+    p = torch.full(mesh.shape, FLAME_P0, dtype=dtype, device=dev)
+    rho0 = th.rho(p, T0, torch.movedim(Y0, 0, -1))
+    U0 = torch.stack([rho_u * u_in / rho0, torch.zeros_like(T0),
+                      torch.zeros_like(T0)])
+    state = next(iter(solvers.values())).initial_state(p, T0, Y0, U0)
+    info = dict(x=Xc.reshape(-1).cpu().numpy(), dx=mesh.dx, length=length,
+                u_in=u_in, T_u=T_u, T_b=T_b, rho_u=rho_u, Y_u=Yu,
+                Y_b=Yb.cpu().numpy(), fuel_index=iF,
+                W_fuel=float(mech.molecular_weights[iF]),
+                species_names=mech.species_names)
+    return solvers, state, info
+
+
+def flame_1d_anchored(mech_path: str, n: int = 512, length: float = 0.008,
+                      u_in: float = 2.2, T_u: float = 300.0,
+                      phi: float = 1.0, fuel: str = "H2", combustion=None,
+                      dtype=torch.float64, device=None, Y_burnt=None):
+    """The inlet-anchored 1D premixed flame of examples/flame_1d_anchored.py
+    (:60-131): fuel/air at phi and T_u enters at u_in through the x-low
+    face of an n-cell channel of `length`, the products leave at 1 atm. The
+    burnt side is the last state of a 5 ms constant-pressure ignition from
+    1200 K (rtol 1e-6, atol 1e-10) at the temperature that keeps the
+    unburnt enthalpy (Newton from 2200 K); Y_burnt (ns,) replaces that
+    ignition (200 reads: 1,600 to 2,300 integrator trips on one lane) when
+    the caller already has it. Laminar chemistry (rtol 1e-6 and atol 1e-12 in float64,
+    else 1e-4 and 1e-8), or `combustion(thermo, kinetics, ode_opts)`'s
+    model. Returns (solver, state, dt = 5 dx / 1200, info): info holds the
+    cell centres x, dx, u_in, T_u, the burnt T_b, rho_u, Y_u, Y_b, the
+    fuel's index and molecular weight and the species names, which
+    flame_1d_diagnostics reads."""
+    make = combustion or (lambda th, kin, opts: Laminar(th, kin,
+                                                        ode_opts=opts))
+    solvers, state, info = _anchored_flame(
+        mech_path, n, length, u_in, T_u, phi, fuel, dtype, device, 1200.0,
+        RosenbrockOptions(rtol=1e-6, atol=1e-10, max_steps=20000), 2200.0,
+        {"flame": make}, Y_burnt)
+    return solvers["flame"], state, 5.0 * info["dx"] / 1200.0, info
+
+
+def flame_1d_diagnostics(solver, states, info) -> dict:
+    """examples/flame_1d_anchored.py's readings (:136-173) of a state or of
+    a run's states in order: per state its time, flame position (the
+    largest |dT/dx|), T_max and consumption speed S_c = -(1/(rho_u
+    Y_u,fuel)) sum(wdot_fuel) W_fuel dx; of the last state the thermal
+    thickness; over the last third of the states (when it holds two or
+    more) the front's drift dx_f/dt from a linear fit, the displacement
+    speed S_L = u_in - drift and the mean S_c (else None)."""
+    if isinstance(states, LowMachState):
+        states = [states]
+    th, kin = solver.thermo, solver.combustion.kinetics
+    x, iF = info["x"], info["fuel_index"]
+    out = {k: [] for k in ("time", "x_f", "T_max", "S_c")}
+    for s in states:
+        Yt = torch.movedim(s.Y, 0, -1)
+        wdot = production_rates(kin, th, s.T, th.rho(s.p, s.T, Yt), Yt)
+        mdot = -wdot[..., iF].sum() * info["W_fuel"] * solver.mesh.dx
+        T = s.T.reshape(-1).cpu().numpy()
+        out["time"].append(float(s.time))
+        out["x_f"].append(flame_position(x, T))
+        out["T_max"].append(float(T.max()))
+        out["S_c"].append(float(mdot / (info["rho_u"]
+                                        * info["Y_u"][iF])))
+    out["thickness"] = flame_thickness(x, T)
+    sel = slice(len(states) * 2 // 3, None)
+    drift = (float(np.polyfit(np.asarray(out["time"])[sel],
+                              np.asarray(out["x_f"])[sel], 1)[0])
+             if len(out["time"][sel]) >= 2 else None)
+    out["drift"] = drift
+    out["S_L_displacement"] = None if drift is None else info["u_in"] - drift
+    out["S_c_avg"] = (float(np.mean(np.asarray(out["S_c"])[sel]))
+                      if drift is not None else None)
+    return out
+
+
+def dnn_closed_loop_flame(mech_path: str, net, n: int = 512,
+                          length: float = 0.012, u_in: float = 5.0,
+                          T_u: float = 500.0, frozen_T: float = 600.0,
+                          dtype=torch.float32, device=None, Y_burnt=None):
+    """The reference's Tu500K-Phi1 case as examples/flame_dnn_closed_loop.py
+    (:62-127) runs it: the anchored H2/air flame at phi = 1, T_u, u_in over
+    `length`, its burnt side from a 5 ms ignition from 1400 K (rtol 1e-4,
+    atol 1e-8; Newton from 2400 K), or Y_burnt. One initial state, two
+    solvers: "ode" with Laminar stiff chemistry and "dnn" with
+    DNNChemistry(net) (the same ode_opts as flame_1d_anchored). `net`: a
+    DFODENet, served with frozen temperature `frozen_T` (a shallow copy
+    carries it; the caller's net is left as it is), or the path of an npz
+    checkpoint, loaded in `dtype`. Returns ({"ode": solver, "dnn": solver},
+    state, dt = 5 dx / 1500, info as flame_1d_anchored's)."""
+    if isinstance(net, (str, os.PathLike)):
+        net = load_npz_checkpoint(net, frozen_T=frozen_T, dtype=dtype,
+                                  device=device)
+    else:
+        net = copy.copy(net)
+        net.frozen_T = float(frozen_T)
+    models = {"ode": lambda th, kin, opts: Laminar(th, kin, ode_opts=opts),
+              "dnn": lambda th, kin, opts: DNNChemistry(
+                  th, kin, ode_opts=opts, net=net)}
+    solvers, state, info = _anchored_flame(
+        mech_path, n, length, u_in, T_u, 1.0, "H2", dtype, device, 1400.0,
+        RosenbrockOptions(rtol=1e-4, atol=1e-8, max_steps=20000), 2400.0,
+        models, Y_burnt)
+    return solvers, state, 5.0 * info["dx"] / 1500.0, info
+
+
+def closed_loop_compare(states, info, ms_per_step=None) -> dict:
+    """examples/flame_dnn_closed_loop.py's metrics (:160-178) of the DNN
+    run against the stiff one, states {"ode": state, "dnn": state}: T's L2
+    and L-infinity deviation relative to the stiff run's, each front's
+    position and their offset (m and cells), and the L-infinity deviation
+    of Y_H2, Y_OH and Y_H2O over the stiff run's largest value; with
+    ms_per_step {"ode": ms, "dnn": ms}, the stiff over the DNN step
+    time."""
+    x = info["x"]
+    T = {k: s.T.reshape(-1).cpu().numpy() for k, s in states.items()}
+    Y = {k: s.Y.reshape(s.Y.shape[0], -1).cpu().numpy()
+         for k, s in states.items()}
+    To, Td = T["ode"], T["dnn"]
+    xf = {k: flame_position(x, v) for k, v in T.items()}
+    dxf = xf["dnn"] - xf["ode"]
+    names = info["species_names"]
+    out = dict(
+        T_L2=float(np.linalg.norm(Td - To) / np.linalg.norm(To)),
+        T_Linf=float(np.abs(Td - To).max() / To.max()), x_f=xf,
+        dx_f=dxf, dx_f_cells=dxf / info["dx"],
+        Y_Linf={sp: float(np.abs(Y["dnn"][k] - Y["ode"][k]).max()
+                          / max(Y["ode"][k].max(), 1e-12))
+                for sp, k in ((sp, names.index(sp))
+                              for sp in ("H2", "OH", "H2O"))})
+    if ms_per_step is not None:
+        out["speedup"] = ms_per_step["ode"] / ms_per_step["dnn"]
+    return out
+
+
+def harvest_states(solver, state, dt: float, steps: int):
+    """examples/flame_dnn_closed_loop.py's --dump-states (:129-155): one
+    step, then steps - 1 more, taking every cell's (T, p, Y) after each
+    max(steps // 40, 1)-th of those. Returns (the last state, {"T": (m,),
+    "p": (m,), "Y": (m, ns)} as numpy), what make_dfodenet_dataset takes as
+    its manifold."""
+    state, _ = solver.step(state, dt)
+    every = max(steps // 40, 1)
+    taken = []
+    for i in range(steps - 1):
+        state, _ = solver.step(state, dt)
+        if (i + 1) % every == 0:
+            taken.append((state.T.reshape(-1).cpu().numpy(),
+                          state.p.reshape(-1).cpu().numpy(),
+                          state.Y.reshape(state.Y.shape[0], -1).T
+                          .cpu().numpy()))
+    if not taken:
+        return state, dict(T=np.zeros(0), p=np.zeros(0),
+                           Y=np.zeros((0, state.Y.shape[0])))
+    return state, {k: np.concatenate([h[i] for h in taken])
+                   for i, k in enumerate(("T", "p", "Y"))}

@@ -28,7 +28,8 @@ import torch
 from ..ops.kernels import gj_inverse
 
 __all__ = ["RosenbrockOptions", "rosenbrock_integrate",
-           "rosenbrock_integrate_batched", "rk23_attempt_batched"]
+           "rosenbrock_integrate_batched", "rk23_attempt_batched",
+           "rosenbrock_attempt"]
 
 # ode23s constants: d = 1/(2 + sqrt(2)), e32 = 6 + sqrt(2)
 _ROS_D = 1.0 / (2.0 + 2.0**0.5)
@@ -204,6 +205,50 @@ def rosenbrock_integrate_batched(rhs_b: Callable, y0, t_end,
     return (y, dt, n_run) if return_nstep else (y, dt)
 
 
+def _step(rhs_b: Callable, y, dt, eye):
+    """One ode23s step of every lane over dt (L,), as the JAX package's
+    single-cell `_step`: (y_new, error vector, relative residual
+    ||W k1 - f0|| / ||f0|| of the Gauss-Jordan solve)."""
+    f0, jac = _jac_and_f(rhs_b, y)
+    W = eye[None] - (dt * _ROS_D)[:, None, None] * jac
+    W_inv = _inverse_batched(W)                                  # (n, n, L)
+    solve = lambda b: torch.einsum("nml,lm->ln", W_inv, b)
+    k1 = solve(f0)
+    f0n = torch.sqrt((f0 * f0).mean(1))
+    solve_res = torch.sqrt(((torch.einsum("lnm,lm->ln", W, k1) - f0)
+                            ** 2).mean(1)) / (f0n + 1e-300)
+    f1 = rhs_b(y + (0.5 * dt)[:, None] * k1)
+    k2 = solve(f1 - k1) + k1
+    y_new = y + dt[:, None] * k2
+    f2 = rhs_b(y_new)
+    k3 = solve(f2 - _ROS_E32 * (k2 - f1) - 2.0 * (k1 - f0))
+    err = (dt / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
+    return y_new, err, solve_res
+
+
+def rosenbrock_attempt(rhs_b: Callable, y, dt,
+                       opts: RosenbrockOptions = RosenbrockOptions()):
+    """ONE error-controlled ode23s step over [0, dt] per lane: what
+    `jax.vmap(rosenbrock_attempt)` computes, lane for lane.
+
+    rhs_b: batched RHS (L, n) -> (L, n); y: (L, n); dt: (L,). Returns
+    (y_new, accepted, dt_suggestion): y_new is the attempt's result whether
+    or not the lane passed the embedded error test and the solve's residual
+    guard (`accepted`), as in the JAX package; dt_suggestion is
+    max(dt clip(safety enorm^(-1/3), shrink, grow), dt_min). dt = 0 lanes
+    return y, accepted. The W inverse is one `gj_inverse` launch."""
+    eye = torch.eye(y.shape[1], dtype=y.dtype, device=y.device)
+    y_new, err, solve_res = _step(rhs_b, y, dt, eye)
+    scale = opts.atol + opts.rtol * torch.maximum(y.abs(), y_new.abs())
+    enorm = torch.clamp(torch.sqrt(((err / scale) ** 2).mean(1)), min=1e-30)
+    accept = ((enorm <= 1.0) & torch.isfinite(y_new).all(1)
+              & (solve_res <= _SOLVE_RES_MAX))
+    factor = torch.clamp(opts.safety * enorm ** (-1.0 / 3.0),
+                         opts.shrink, opts.grow)
+    dt_sugg = torch.clamp(dt * factor, min=opts.dt_min)
+    return y_new, accept, dt_sugg
+
+
 def rosenbrock_integrate(rhs_b: Callable, y0, t_end,
                          opts: RosenbrockOptions = RosenbrockOptions(),
                          dt_start=None, return_dt: bool = False,
@@ -243,20 +288,7 @@ def rosenbrock_integrate(rhs_b: Callable, y0, t_end,
     def body(y, t, dt, nstep):
         act = (t < t_stop) & (nstep < opts.max_steps)
         dt_c = torch.minimum(dt, t_end - t)
-        f0, jac = _jac_and_f(rhs_b, y)
-        W = eye[None] - (dt_c * _ROS_D)[:, None, None] * jac
-        W_inv = _inverse_batched(W)                              # (n, n, L)
-        solve = lambda b: torch.einsum("nml,lm->ln", W_inv, b)
-        k1 = solve(f0)
-        f0n = torch.sqrt((f0 * f0).mean(1))
-        solve_res = torch.sqrt(((torch.einsum("lnm,lm->ln", W, k1) - f0)
-                                ** 2).mean(1)) / (f0n + 1e-300)
-        f1 = rhs_b(y + (0.5 * dt_c)[:, None] * k1)
-        k2 = solve(f1 - k1) + k1
-        y_new = y + dt_c[:, None] * k2
-        f2 = rhs_b(y_new)
-        k3 = solve(f2 - _ROS_E32 * (k2 - f1) - 2.0 * (k1 - f0))
-        err = (dt_c / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
+        y_new, err, solve_res = _step(rhs_b, y, dt_c, eye)
         scale = opts.atol + opts.rtol * torch.maximum(y.abs(), y_new.abs())
         enorm = torch.clamp(torch.sqrt(((err / scale) ** 2).mean(1)),
                             min=1e-30)

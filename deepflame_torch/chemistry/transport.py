@@ -66,6 +66,11 @@ class TransportData:
     def lambda_species(self, T):
         return torch.exp(_polyval(self.lam_coeffs, torch.log(T)[..., None]))
 
+    def binary_diff(self, T, p):
+        """(..., ns, ns) binary diffusion coefficients [m^2/s]."""
+        lnT = torch.log(T)[..., None, None]
+        return torch.exp(_polyval(self.diff_coeffs, lnT)) / p[..., None, None]
+
     def mu_mix(self, T, X):
         """Wilke mixture viscosity, separable form: three (cells, ns) @ (ns, ns)
         products with constant matrices, no (cells, ns, ns) intermediate."""

@@ -45,6 +45,10 @@ class CombustionModel:
         step of the stiff integrator."""
         raise NotImplementedError
 
+    def kappa(self, turb) -> float:
+        """Reacting fraction applied to R(Yi); 1 for laminar."""
+        return 1.0
+
 
 @dataclasses.dataclass(frozen=True)
 class Laminar(CombustionModel):

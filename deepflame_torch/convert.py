@@ -29,6 +29,7 @@ from .solvers.spray import SprayFLState
 __all__ = ["mechanism_from_numpy", "state_from_numpy", "fl_state_from_numpy",
            "hs_fl_state_from_numpy", "fgm_fl_state_from_numpy",
            "spray_fl_state_from_numpy", "dfodenet_from_numpy",
+           "dfodenet_to_numpy",
            "flamelet_table_from_numpy", "deep_fgm_from_numpy",
            "hs_state_from_numpy", "patch_state_from_numpy",
            "row_patch_state_from_numpy", "patch_state_to_numpy",
@@ -123,6 +124,18 @@ def dfodenet_from_numpy(nets, x_mean, x_std, y_mean, y_std, delta_t: float,
                     x_mean=f(x_mean), x_std=f(x_std), y_mean=f(y_mean),
                     y_std=f(y_std), delta_t=delta_t, frozen_T=frozen_T,
                     compute_dtype=compute_dtype)
+
+
+def dfodenet_to_numpy(net: DFODENet) -> dict:
+    """The arguments of dfodenet_from_numpy as numpy, from a DFODENet:
+    nets [[(W (in, out), b (out,)), ...] per species], x_mean, x_std,
+    y_mean, y_std, delta_t and frozen_T (the JAX package's DFODENet takes
+    the same fields)."""
+    a = lambda t: t.detach().cpu().numpy()
+    return dict(nets=[[(a(W), a(b)) for W, b in net] for net in net.nets],
+                x_mean=a(net.x_mean), x_std=a(net.x_std),
+                y_mean=a(net.y_mean), y_std=a(net.y_std),
+                delta_t=net.delta_t, frozen_T=net.frozen_T)
 
 
 def flamelet_table_from_numpy(d: dict, dtype=torch.float64,

@@ -455,6 +455,14 @@ class LowMachSolver:
                             dpdt=dpdt, time=s.time + dt, turb=turb,
                             cscalars=cscalars, chem_dt=chem_dt_new), diag
 
+    def courant(self, s: LowMachState, dt) -> torch.Tensor:
+        """Largest Courant number, max over the axes of gmax(|U_ax|) dt /
+        h_ax (compressibleCourantNo.H), a 0-d tensor."""
+        co = torch.zeros((), dtype=s.U.dtype, device=s.U.device)
+        for ax, h in enumerate(self.mesh.spacing):
+            co = torch.maximum(co, gmax(s.U[ax].abs()) * dt / h)
+        return co
+
     # ---------------------------------------------- shared PIMPLE blocks
     def _grad_comp(self, f, ax: int):
         """Component ax of grad(f) with the coefficient BCs."""

@@ -46,6 +46,7 @@ def test_port_modules_load_no_jax():
         "import deepflame_torch.cases, deepflame_torch.convert\n"
         "import deepflame_torch.solvers.low_mach, deepflame_torch.ops.kernels\n"
         "import deepflame_torch.chemistry.dnn, deepflame_torch.combustion\n"
+        "import deepflame_torch.chemistry.dnn_train\n"
         "import deepflame_torch.runtime.factory, deepflame_torch.runtime.driver\n"
         "import deepflame_torch.mesh.geometry, deepflame_torch.mesh.facelist\n"
         "import deepflame_torch.mesh.blockmesh, deepflame_torch.mesh.polymesh\n"
@@ -296,3 +297,72 @@ def test_port_exports_what_jax_exports():
     tags = [t for q in QUEUED.values() for t in q.values()]
     for tag in tags + list(QUEUED_MODULES.values()):
         assert f"[{tag.split('.')[0]}]" in roadmap, tag
+
+
+# Public module-level functions of JAX modules the port does not have, each
+# with its reason. Nothing else may be missing.
+NO_COUNTERPART = {
+    # XLA's persistent compile cache: the port compiles nothing through XLA
+    ("", "enable_compile_cache"),
+    # TPU VMEM fit checks of the Pallas kernels' tiling; the Hopper kernels
+    # take any size up to their own limits (ops.kernels.gj_limits)
+    ("ops.pallas_kernels", "fits_vmem"),
+    ("ops.pallas_kernels", "fits_vmem_tiled"),
+    ("ops.pallas_kernels", "fits_stencil_tiled"),
+}
+# The Pallas kernels' functions and the port's kernel wrappers that replace
+# them (ops.kernels)
+KERNEL_COUNTERPART = {"gj_inverse_lanes": "gj_inverse",
+                      "helmholtz_apply": "helmholtz7_apply",
+                      "helmholtz_apply_tiled": "helmholtz7_apply",
+                      "mlp_fused_lanes": "mlp_fused",
+                      "stencil_apply_tiled": "stencil7_apply",
+                      "ell_matvec": "ell_matvec"}
+
+
+def _public_members(path: str) -> tuple[set, dict]:
+    """(public functions defined at module level, {public class: its public
+    methods defined in its body}) of a source file, read with ast."""
+    import ast
+    tree = ast.parse(open(path).read())
+    fn = (ast.FunctionDef, ast.AsyncFunctionDef)
+    funcs = {n.name for n in tree.body
+             if isinstance(n, fn) and not n.name.startswith("_")}
+    classes = {n.name: {m.name for m in n.body
+                        if isinstance(m, fn) and not m.name.startswith("_")}
+               for n in tree.body if isinstance(n, ast.ClassDef)
+               and not n.name.startswith("_")}
+    return funcs, classes
+
+
+def _source(package: str, rel: str) -> str:
+    base = os.path.join(ROOT, package, *rel.split(".")) if rel \
+        else os.path.join(ROOT, package)
+    return (os.path.join(base, "__init__.py") if os.path.isdir(base)
+            else base + ".py")
+
+
+def test_port_has_every_public_function_and_method_of_jax():
+    """Every public module-level function and every public method of a
+    public class of each JAX module is defined in the port's counterpart
+    module (of the same dotted name, or COUNTERPART's; the Pallas kernels
+    by KERNEL_COUNTERPART's names), less NO_COUNTERPART's, each of which is
+    really missing. __all__ alone (test_port_exports_what_jax_exports)
+    cannot see a method or an unexported function."""
+    missing, checked = set(), 0
+    for rel in _port_modules("deepflame_tpu"):
+        jf, jc = _public_members(_source("deepflame_tpu", rel))
+        tf, tcls = _public_members(_source("deepflame_torch",
+                                           COUNTERPART.get(rel, rel)))
+        if rel == "ops.pallas_kernels":
+            jf = {KERNEL_COUNTERPART.get(f, f) for f in jf}
+        missing |= {(rel, f) for f in jf - tf}
+        for cls, methods in jc.items():
+            if cls not in tcls:
+                missing.add((rel, cls))
+                continue
+            missing |= {(rel, f"{cls}.{m}") for m in methods - tcls[cls]}
+            checked += len(methods)
+        checked += len(jf)
+    assert missing == NO_COUNTERPART, sorted(missing ^ NO_COUNTERPART)
+    assert checked >= 300
