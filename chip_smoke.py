@@ -37,7 +37,7 @@ toolkit (nvcc). In order:
    and the stiff case with the dynamic Smagorinsky model; and a
    constant-volume 0D ignition;
 4. drives the four main paths in float32 on the 9-species test mechanism,
-   warm-up steps and then two timed steps each, with the launch counts set
+   one warm-up step and then one timed step each, with the launch counts set
    to 0 just before the timed steps and read just after:
    - the stiff path at 96^3, the 3D reacting LES Taylor-Green step
      (deepflame_torch.cases.reacting_tgv_3d_les); the stencil, Helmholtz
@@ -46,8 +46,8 @@ toolkit (nvcc). In order:
      (deepflame_torch.cases.reacting_tgv_3d_les_dnn); the stencil and
      Helmholtz kernels must launch, and the fused MLP once per step;
    - the face-list path, the 3D LES jet flame on a 128 x 64 x 64 blockMesh
-     mesh (deepflame_torch.cases.jet_flame_3d_les_fl, dt 5e-7 s, two
-     warm-up steps as bench.py takes); the ELL SpMV and Gauss-Jordan
+     mesh (deepflame_torch.cases.jet_flame_3d_les_fl, dt 5e-7 s); the ELL
+     SpMV and Gauss-Jordan
      kernels must launch;
    - the structured jet, the same case on the 128 x 64 x 64 box
      (deepflame_torch.cases.jet_flame_3d_les, bench.py's jet line; one
@@ -59,7 +59,9 @@ toolkit (nvcc). In order:
 5. runs the DNN case through the case runtime at 32^3 (a CaseConfig, the
    solver factory with an npz checkpoint of seeded weights, run_case with
    splittingStrategy, one checkpoint, then a restart from it);
-6. tci: the structured jet at n = 8 (16 x 8 x 8) in float64 with PaSR
+6. tci (in a whole run its workers start beside item 3's and it is
+   checked before item 4 is timed): the structured jet at n = 8 (16 x 8 x
+   8) in float64 with PaSR
    dynamicScale and with EDC v2005, 2 steps through run_case with the
    jet's function objects (cases.jet_function_objects) on the card and on
    the CPU path: fields and the transported Z, Zvar and Chi within 1e-8
@@ -67,7 +69,7 @@ toolkit (nvcc). In order:
    separable min/max locations equal, their values within 1e-10 of each
    column's largest (1e-8 for columns computed from the velocity);
 7. sjet-pasr: the structured jet at 128 x 64 x 64 in float32 with the
-   factory's PaSR dynamicScale through run_case, 2 warm-up and 2 timed
+   factory's PaSR dynamicScale through run_case, 1 warm-up and 1 timed
    steps with the function objects writing every step (launch counts set
    to 0 just before the timed steps, read just after; the stencil,
    Helmholtz and Gauss-Jordan kernels must launch; every file written,
@@ -82,14 +84,15 @@ toolkit (nvcc). In order:
    an OpenFOAM field file of the n = 8 jet's T read back onto the card;
 10. hs, the density-based solver: gates first, card against the CPU path
    in float64 (both sides, and cj_speed, in worker processes side by side,
-   all done before anything is timed): the
+   all done before anything is timed; in a whole run beside the gates of
+   items 11 and 12, in one window of 8 workers): the
    2D H2-air detonation at 64 x 8 (igniters over the lower half), 2 steps,
    fields within 1e-8; the Sod tube (tests/data/air.yaml, 400 cells) once
    per flux scheme and once with WENO5, fields within 1e-8 and the plateau
    within 3 % of the exact p* and u*. Then the reference's 2000 x 100
    channel (deepflame_torch.cases.detonation_2d_h2) in float32, its
    solver from runtime.factory.build_high_speed_solver with a CaseConfig,
-   1 warm-up and 2 timed steps through run_case (launch counts set to 0
+   1 warm-up and 1 timed step through run_case (launch counts set to 0
    just before, read just after; gj_inverse must launch); the chemistry
    split's share of one more step; one split with every cell active (a
    labelled measurement, not the path); cj_speed on the test mechanism
@@ -107,7 +110,7 @@ toolkit (nvcc). In order:
    Then the reference's 2000 x 100
    channel with front-shaped row patches (deepflame_torch.cases.
    detonation_2d_h2_amr: 5 patches of 96 x 26 fine cells, ratio 4) in
-   float32, 1 warm-up and 2 timed coarse steps (launch counts set to 0 just
+   float32, 1 warm-up and 1 timed coarse step (launch counts set to 0 just
    before, read just after; gj_inverse must launch in the coarse drain and
    in the fine one, one drain a substep for every row): ms per coarse step,
    the example's cell-updates per coarse step, launches and lanes of each
@@ -123,11 +126,12 @@ toolkit (nvcc). In order:
    Sandia D jet at 96 x 48 in float64, 2 steps, card against CPU with the
    table and with a seeded DeepFGM (fields 1e-8, velocity and fluxes
    1e-6); the native and the Python parser's seconds on the nc41 table;
-   the jet at 1024 x 512 in float32, 2 warm-up and 5 timed steps (the
+   the jet at 1024 x 512 in float32, 1 warm-up and 2 timed steps (the
    stencil and Helmholtz kernels must launch), the table lookups' share of
    one more step;
 13. spray and mist, the spray solvers. Gates first, card against the CPU
-   path in float64, in worker processes side by side: the aachenBomb
+   path in float64, in worker processes side by side (in a whole run item
+   17's gates and shock runs beside them): the aachenBomb
    chamber at 11 x 20 x 11, 2 steps, the CPU replaying the card's draws
    (deepflame_torch.lagrangian.cloud.draw), gas fields and parcel
    position, velocity, diameter and temperature within 1e-8; the RAS
@@ -136,19 +140,21 @@ toolkit (nvcc). In order:
    parcels, 2 steps, 1e-8. Then the reference's threeD_aachenBomb at 41 x
    100 x 41 in float32 (deepflame_torch.cases.aachen_bomb_3d: kEpsilon,
    Laminar chemistry, water into the test mechanism's air), 2 warm-up and
-   5 timed steps (the stencil and Helmholtz kernels must launch), the
+   2 timed steps (the stencil and Helmholtz kernels must launch), the
    cloud's, the RAS model's and the chemistry's shares of one more step,
    one evolve with all 32,768 slots active and one chemistry solve with
    every cell in the drain's bins (labelled measurements), the kernels at
    the chamber's shapes; and oneD_detH2WaterMist at 700 cells with 80,000
    parcels x 275 in float32 (deepflame_torch.cases.
-   watermist_detonation_1d, the mist released in the first step), 2
-   warm-up and 5 timed steps (gj_inverse must launch), the cloud's and the
+   watermist_detonation_1d, the mist released in the first step), 1
+   warm-up and 2 timed steps (gj_inverse must launch), the cloud's and the
    chemistry split's shares of one more step, gj_inverse at the split's
    lanes;
 14. the face-list backend's paths, each with float64 gates first (in
-   worker processes, 2 steps) and then 2 warm-up and timed steps (2 on the
-   jet, FL_STEPS on the others) in float32 with the launch counts set to 0
+   worker processes, 2 steps; in a whole run those of fljet, hsfl and
+   fgmfl in one window of 8 workers) and then 1 warm-up and 1 (fljet) or 2
+   timed steps in
+   float32 with the launch counts set to 0
    just before and read just after:
    - fljet: the structured jet on shift-plan meshes
      (deepflame_torch.cases.jet_flame_3d_les_plan) at 128 x 64 x 64;
@@ -184,7 +190,7 @@ toolkit (nvcc). In order:
    card step against the CPU's printed beside; and
    solve_chemistry(cross_shard=True) of 4,096 cells on the 4 ranks against
    the global solve. Then, in float32: the 96^3 stiff TGV over (4, 1, 1)
-   ranks (DistributedLowMach), 1 warm-up and 2 timed steps and one more with
+   ranks (DistributedLowMach), 1 warm-up and 1 timed step and one more with
    dlb_cross_shard, helmholtz7_apply and gj_inverse launching on every rank;
    the 128 x 64 x 64 blockMesh jet on 4 ranks in (1, 2, 2) blocks
    (DistributedLowMachFL, block_order), 1 warm-up and 1 timed step,
@@ -217,7 +223,40 @@ toolkit (nvcc). In order:
    Helmholtz BC form with the flame's pressure BCs and gj_inverse at the
    data set's and the flame's drain lanes (in a fresh worker), each
    against its plain version;
-17. prints its total seconds, the card line, one JSON line of kernel
+17. examples, the examples' own families (deepflame_torch.cases.flame_1d,
+   reacting_tgv_2d, jet_flame_2d, detonation_1d, shock_watermist_1d,
+   droplet_relaxation; examples/flame_1d.py, reacting_tgv_2d.py,
+   jet_flame_2d.py, detonation_1d.py, shock_watermist_1d.py,
+   single_droplet_motion.py). Float64 gates first, card against the CPU
+   path, each side in a worker, all side by side, 2 steps: the free flame
+   at 32 cells, the TGV at 8 x 8, the jet at cells = 6 with EDC, the
+   detonation at 40 cells over 0.2 m, the shock at 24 cells dry and with
+   the fog (every field and parcel array within 1e-8 of its largest value,
+   Krylov iterations and chemistry lanes equal), and 10 steps of each
+   droplet run; beside them, in two more workers, the shock's own run on
+   the card, float32 at 240 cells to 2 ms, dry and through the fog: the
+   dry speed over x in (0.1, 1.0) m within 3 % of the Rankine-Hugoniot 417
+   m/s; the fog's printed beside it (the example expects it slower: see
+   ROADMAP section C on the vapour's energy). Then at each example's mesh
+   and options (the
+   launch counts set to 0 just before the timed steps, read just after):
+   the flame at 256 cells, 1 warm-up and 1 timed step in float32 and in
+   float64 (the example's default: in float32 no stiff lane reaches the
+   implicit tier), the front and T_max printed; the TGV at 64 x 64 in
+   float32, 1 warm-up and 2 steps through run_case with its function
+   objects writing every step (one row and one line a write, finite, the
+   line at the cell centres); the jet at 96 x 24 with EDC in float64, 1 +
+   1 steps; the stencil, Helmholtz and Gauss-Jordan kernels must launch on
+   these three; the detonation at 625 cells in float32,
+   gj_inverse must launch (1 + 1 steps), the front and p_max printed; the
+   shock dry and
+   with the fog, float32, 1 + 2 steps each, and the droplet's three runs
+   whole in float64 (within 2 % of the reference integration), no kernel
+   may launch on these; then the stencil and the Helmholtz BC form at the
+   three low-Mach meshes with their BCs, and gj_inverse at the smallest
+   and the largest drain of each type's timed steps, in a fresh worker,
+   each against its plain version;
+18. prints its total seconds, the card line, one JSON line of kernel
    figures, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -235,12 +274,13 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MECH = os.path.join(HERE, "tests", "data", "h2_air_9sp.json")
 PALLAS = "deepflame_tpu/ops/pallas_kernels.py"
-N_MAIN, STEPS = 96, 2          # main paths: cells per side, timed steps
+N_MAIN, STEPS = 96, 1          # main paths: cells per side, timed steps
 N_RUNTIME = 32                 # runtime phase: cells per side
 DT = 2.5e-7                    # step of the TGV cases [s]
 N_JET, JET_DT = 64, 5e-7       # face-list jet: (2n, n, n) cells; its step [s]
@@ -1246,8 +1286,8 @@ def _check_sjet(torch, solver, state) -> None:
 
 def phase_main(torch, K, path: str, n: int, steps: int,
                profile: str | None, built=None):
-    """Warm-up steps (two on the jets, as bench.py takes, one on the TGV)
-    and `steps` timed steps of a main path in float32; returns the launch
+    """One warm-up step (bench.py takes two on the jet) and `steps` timed
+    steps of a main path in float32; returns the launch
     counts of the timed steps and (solver, state, ms/step, diagnostics of
     the last step) after them.
     `built`: (solver, state) built already."""
@@ -1267,11 +1307,10 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     else:
         solver, state = built
     n_cells = state.T.numel()
-    for i in range(2 if path in ("fl", "sjet") else 1):
-        t0 = time.perf_counter()
-        state, diag = solver.step(state, dt)
-        torch.cuda.synchronize()
-        print(f"{path} warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    state, diag = solver.step(state, dt)
+    torch.cuda.synchronize()
+    print(f"{path} warm-up step: {time.perf_counter() - t0:.3f} s")
     T_before = state.T.clone()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -1734,51 +1773,58 @@ def _tci_side_worker(model: str, dev: str, out_dir: str) -> dict:
     return _tci_side(_worker_torch(), model, dev, out_dir)
 
 
-def phase_tci(torch, K) -> dict:
+def _tci_submit(pool, tmp: str) -> dict:
+    """Submit phase_tci's four runs (each model on the card and on the
+    CPU), writing under tmp."""
+    return {(m, dev): pool.submit(_tci_side_worker, m, dev,
+                                  os.path.join(tmp, f"{m}_{dev}"))
+            for m in ("EDC", "PaSR") for dev in ("cuda", "cpu")}
+
+
+def phase_tci(torch, K, runs=None) -> dict:
     """The structured jet at n = 8 (16 x 8 x 8) in float64 with PaSR
     dynamicScale and with EDC v2005, 2 steps through run_case with the
     jet's function-object set, on the card and on the CPU path (each run
-    in one of four worker processes side by side): every
+    in one of four worker processes side by side; `runs`: those
+    _tci_submit gave, else submitted here): every
     field and the transported Z, Zvar and Chi within 1e-8 of their largest
     values (U 1e-6); the written files as _compare_fo (1e-10 of each
     column's largest, 1e-8 for the columns computed from the velocity).
     Returns {model: the card's T} (the PaSR one feeds the OpenFOAM-IO
     check)."""
-    import tempfile
+    if runs is None:
+        with tempfile.TemporaryDirectory() as tmp, _pool(4) as pool:
+            return phase_tci(torch, K, _tci_submit(pool, tmp))
     out = {}
-    with tempfile.TemporaryDirectory() as tmp, _pool(4) as pool:
-        runs = {(m, dev): pool.submit(_tci_side_worker, m, dev,
-                                      os.path.join(tmp, f"{m}_{dev}"))
-                for m in ("EDC", "PaSR") for dev in ("cuda", "cpu")}
-        for model in ("PaSR", "EDC"):
-            sc, sp = runs[model, "cuda"].result(), runs[model, "cpu"].result()
-            check(all(sc["launched"][k] > 0 for k in PATH_KERNELS["sjet"]),
-                  f"tci {model}: a kernel of the path did not launch")
-            check(not any(sp["launched"].values()),
-                  f"tci {model}: the CPU path counted a launch")
-            devs = {}
-            for k, a in sc["fields"].items():
-                devs[k] = max_rel_err(torch, a, sp["fields"][k])[1]
-                check(devs[k] <= (1e-6 if k == "U" else 1e-8),
-                      f"tci {model} {k}: {devs[k]:.3e}")
-            check(len(sc["cscalars"]) == (3 if model == "PaSR" else 0),
-                  f"tci {model}: transported scalars")
-            for name, a, b in zip(("Z", "Zvar", "Chi"), sc["cscalars"],
-                                  sp["cscalars"]):
-                devs[name] = max_rel_err(torch, a, b)[1]
-                check(devs[name] <= 1e-8, f"tci {model} {name}: "
-                                          f"{devs[name]:.3e}")
-            worst = max(devs.values())
-            fo_worst = _compare_fo(torch, sc, sp)
-            print(f"tci ({model}): n=8 float64, 2 steps through run_case on "
-                  f"the card vs the CPU path: largest field deviation "
-                  f"{worst:.3e}; function-object files, of each column's "
-                  f"largest: {fo_worst['fields']:.3e} (field columns), "
-                  f"{fo_worst['flow']:.3e} (columns from velocity "
-                  f"gradients and fluxes); last step "
-                  + json.dumps(sc["iters"])
-                  + f"; by field {json.dumps(devs)}")
-            out[model] = sc["fields"]["T"]
+    for model in ("PaSR", "EDC"):
+        sc, sp = runs[model, "cuda"].result(), runs[model, "cpu"].result()
+        check(all(sc["launched"][k] > 0 for k in PATH_KERNELS["sjet"]),
+              f"tci {model}: a kernel of the path did not launch")
+        check(not any(sp["launched"].values()),
+              f"tci {model}: the CPU path counted a launch")
+        devs = {}
+        for k, a in sc["fields"].items():
+            devs[k] = max_rel_err(torch, a, sp["fields"][k])[1]
+            check(devs[k] <= (1e-6 if k == "U" else 1e-8),
+                  f"tci {model} {k}: {devs[k]:.3e}")
+        check(len(sc["cscalars"]) == (3 if model == "PaSR" else 0),
+              f"tci {model}: transported scalars")
+        for name, a, b in zip(("Z", "Zvar", "Chi"), sc["cscalars"],
+                              sp["cscalars"]):
+            devs[name] = max_rel_err(torch, a, b)[1]
+            check(devs[name] <= 1e-8, f"tci {model} {name}: "
+                                      f"{devs[name]:.3e}")
+        worst = max(devs.values())
+        fo_worst = _compare_fo(torch, sc, sp)
+        print(f"tci ({model}): n=8 float64, 2 steps through run_case on "
+              f"the card vs the CPU path: largest field deviation "
+              f"{worst:.3e}; function-object files, of each column's "
+              f"largest: {fo_worst['fields']:.3e} (field columns), "
+              f"{fo_worst['flow']:.3e} (columns from velocity "
+              f"gradients and fluxes); last step "
+              + json.dumps(sc["iters"])
+              + f"; by field {json.dumps(devs)}")
+        out[model] = sc["fields"]["T"]
     return out
 
 
@@ -1833,7 +1879,7 @@ def _fo_cost(torch, fo, fields, profile: bool = True) -> dict:
 
 def phase_sjet_pasr(torch, K, steps: int = STEPS):
     """The structured jet at 128 x 64 x 64 in float32 with the factory's
-    PaSR dynamicScale through run_case: 2 warm-up steps, then `steps` timed
+    PaSR dynamicScale through run_case: 1 warm-up step, then `steps` timed
     steps with the launch counts set to 0 just before and read just after,
     the function-object set writing every step. Then one more step with
     the drains' trips counted, and the function objects' cost on the final
@@ -1854,9 +1900,9 @@ def phase_sjet_pasr(torch, K, steps: int = STEPS):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         state, _, _ = _run_fo(torch, solver, state, os.path.join(tmp, "w"),
-                              2, True)
+                              1, True)
         torch.cuda.synchronize()
-        print(f"sjet-pasr warm-up: 2 steps in {time.perf_counter() - t0:.2f}"
+        print(f"sjet-pasr warm-up: 1 step in {time.perf_counter() - t0:.2f}"
               f" s")
         T_before = state.T.clone()
         torch.cuda.reset_peak_memory_stats()
@@ -2038,8 +2084,8 @@ AIR = os.path.join(HERE, "tests", "data", "air.yaml")
 FGM_TABLE = os.path.join(HERE, "data", "flare_CH4_drm19_SandiaD_4D.tbl")
 FGM_TABLE_NC41 = os.path.join(HERE, "data",
                               "flare_CH4_drm19_SandiaD_4D_nc41.tbl")
-HS_NX, HS_NY, HS_STEPS = 2000, 100, 2      # the reference's 2D channel
-FGM_NX, FGM_NY, FGM_STEPS = 1024, 512, 5   # the structured jet's cell count
+HS_NX, HS_NY, HS_STEPS = 2000, 100, 1      # the reference's 2D channel
+FGM_NX, FGM_NY, FGM_STEPS = 1024, 512, 2   # the structured jet's cell count
 FGM_DT = 4e-6 * 96 / FGM_NX                # the example's Courant number
 FGM_LX = 0.12           # sandia_d_fgm_2d's slab length: spacing FGM_LX / nx
 AACHEN_NXZ, AACHEN_NY = 41, 100            # the reference's 3D chamber
@@ -2112,7 +2158,18 @@ def _hs_case():
         dtype="float32")
 
 
-def phase_hs(torch, K):
+def _hs_submit(pool) -> dict:
+    """Submit phase_hs's gate runs: cj_speed, the 64 x 8 detonation and
+    the Sod runs, card and CPU sides."""
+    runs = {"cj": pool.submit(_cj)}
+    runs.update({("det", dev): pool.submit(_hs_detonation, dev)
+                 for dev in ("cuda", "cpu")})
+    runs.update({("sod", run, dev): pool.submit(_hs_sod, dev, *run)
+                 for run in SOD_RUNS for dev in ("cuda", "cpu")})
+    return runs
+
+
+def phase_hs(torch, K, runs=None):
     """The density-based solver. First, side by side in worker processes
     (card and CPU sides, all host-bound): the 2D detonation at 64 x 8 in
     float64 (igniters over the lower half so that cells burn), 2 steps,
@@ -2124,33 +2181,32 @@ def phase_hs(torch, K):
     HS_STEPS timed steps (launch counts set to 0 just before, read just
     after); the chemistry split timed in one more step; one split with
     every cell active (the case's composition at 1500 K and 20 atm, a
-    labelled measurement). Returns (launch counts of the timed steps,
-    ms/step)."""
-    with _pool(7) as pool:
-        cj = pool.submit(_cj)
-        det = {dev: pool.submit(_hs_detonation, dev) for dev in ("cuda", "cpu")}
-        sod = {(run, dev): pool.submit(_hs_sod, dev, *run)
-               for run in SOD_RUNS for dev in ("cuda", "cpu")}
-        t0 = time.perf_counter()
-        (card, diag), (ref, _) = det["cuda"].result(), det["cpu"].result()
-        _field_gate(torch, "hs detonation 64 x 8 float64, 2 steps", card, ref,
+    labelled measurement). `runs`: those _hs_submit gave (done), else
+    submitted here. Returns (launch counts of the timed steps, ms/step)."""
+    if runs is None:
+        with _pool(7) as pool:
+            runs = _hs_submit(pool)
+    t0 = time.perf_counter()
+    (card, diag), (ref, _) = (runs["det", "cuda"].result(),
+                              runs["det", "cpu"].result())
+    _field_gate(torch, "hs detonation 64 x 8 float64, 2 steps", card, ref,
+                HS_FIELDS, 1e-8)
+    check(diag["chem_lanes"] > 0, "hs: no cell burned at 64 x 8")
+    print(f"hs detonation gate: {diag['chem_lanes']} active lanes, "
+          f"{diag['chem_trips']} trips in the last step; "
+          f"{time.perf_counter() - t0:.1f} s waited")
+    for run in SOD_RUNS:
+        (card, star), (ref, _) = (runs["sod", run, "cuda"].result(),
+                                  runs["sod", run, "cpu"].result())
+        _field_gate(torch, "hs Sod {}/{}".format(*run), card, ref,
                     HS_FIELDS, 1e-8)
-        check(diag["chem_lanes"] > 0, "hs: no cell burned at 64 x 8")
-        print(f"hs detonation gate: {diag['chem_lanes']} active lanes, "
-              f"{diag['chem_trips']} trips in the last step; "
-              f"{time.perf_counter() - t0:.1f} s waited")
-        for run in SOD_RUNS:
-            (card, star), (ref, _) = (sod[run, "cuda"].result(),
-                                      sod[run, "cpu"].result())
-            _field_gate(torch, "hs Sod {}/{}".format(*run), card, ref,
-                        HS_FIELDS, 1e-8)
-            print("hs Sod {}/{}: ".format(*run) + star["line"])
-            check(star["ok"], "hs Sod {}/{}: star state off by more than 3 "
-                              "%".format(*run))
-        D, T_cj, p_cj, line = cj.result()
-        print(line)
-        check(1500.0 < D < 2500.0 and 2000.0 < T_cj < 3500.0,
-              f"hs: cj_speed out of range ({D}, {T_cj})")
+        print("hs Sod {}/{}: ".format(*run) + star["line"])
+        check(star["ok"], "hs Sod {}/{}: star state off by more than 3 "
+                          "%".format(*run))
+    D, T_cj, p_cj, line = runs["cj"].result()
+    print(line)
+    check(1500.0 < D < 2500.0 and 2000.0 < T_cj < 3500.0,
+          f"hs: cj_speed out of range ({D}, {T_cj})")
     return _hs_path(torch, K)
 
 
@@ -2347,28 +2403,34 @@ def _fgm_gate_case(dev: str, deep: bool):
     return _as_numpy(s, FGM_FIELDS + ("U", "phi"))
 
 
-def phase_fgm(torch, K):
+def _fgm_submit(pool) -> dict:
+    """Submit phase_fgm's gate runs, card and CPU sides."""
+    return {(deep, dev): pool.submit(_fgm_gate_case, dev, deep)
+            for deep in (False, True) for dev in ("cuda", "cpu")}
+
+
+def phase_fgm(torch, K, runs=None):
     """The flareFGM solver. Gates first, in worker processes: the Sandia D
     jet at the example's 96 x 48 in float64, 2 steps, card against CPU,
     with the table and with a seeded DeepFGM (fields within 1e-8, velocity
     and fluxes 1e-6); the
     native and the Python parser's seconds on the 4.3 MB nc41 table. Then
-    FGM_NX x FGM_NY in float32 on the Sandia D table, 2 warm-up and
+    FGM_NX x FGM_NY in float32 on the Sandia D table, 1 warm-up and
     FGM_STEPS timed steps of FGM_DT (launch counts set to 0 just before,
-    read just after). Returns (launch counts of the timed steps,
-    ms/step)."""
+    read just after). `runs`: those _fgm_submit gave (done), else
+    submitted here. Returns (launch counts of the timed steps, ms/step)."""
     from deepflame_torch.cases import sandia_d_fgm_2d
     from deepflame_torch.combustion.fgm import read_flare_table
     t0 = time.perf_counter()
-    with _pool(4) as pool:
-        runs = {(deep, dev): pool.submit(_fgm_gate_case, dev, deep)
-                for deep in (False, True) for dev in ("cuda", "cpu")}
-        for deep in (False, True):
-            label = "DeepFGM" if deep else "table"
-            _field_gate(torch, f"fgm 96 x 48 float64 {label}, 2 steps",
-                        runs[deep, "cuda"].result(),
-                        runs[deep, "cpu"].result(), FGM_FIELDS, 1e-8,
-                        ("U", "phi"), 1e-6)
+    if runs is None:
+        with _pool(4) as pool:
+            runs = _fgm_submit(pool)
+    for deep in (False, True):
+        label = "DeepFGM" if deep else "table"
+        _field_gate(torch, f"fgm 96 x 48 float64 {label}, 2 steps",
+                    runs[deep, "cuda"].result(),
+                    runs[deep, "cpu"].result(), FGM_FIELDS, 1e-8,
+                    ("U", "phi"), 1e-6)
     print(f"fgm gates: {time.perf_counter() - t0:.1f} s")
     secs = {}
     for native in (True, False):
@@ -2390,11 +2452,10 @@ def phase_fgm(torch, K):
     print(f"fgm path: Sandia D jet {FGM_NX} x {FGM_NY} float32 on "
           f"{os.path.basename(FGM_TABLE)}, dt {FGM_DT:g} s, built in "
           f"{time.perf_counter() - t0:.2f} s")
-    for i in range(2):
-        t0 = time.perf_counter()
-        state, diag = solver.step(state, FGM_DT)
-        torch.cuda.synchronize()
-        print(f"fgm warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    state, diag = solver.step(state, FGM_DT)
+    torch.cuda.synchronize()
+    print(f"fgm warm-up step: {time.perf_counter() - t0:.3f} s")
     T_before = state.T.clone()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -2438,7 +2499,7 @@ def phase_fgm(torch, K):
 # ------------------------------------------- RAS and the Lagrangian spray
 
 MIST_N, MIST_PARCELS, MIST_NP = 700, 80_000, 275.0   # its manualInjection
-SPRAY_STEPS = 5
+SPRAY_STEPS = 2
 SPRAY_FIELDS = ("rho", "U", "p", "ha", "Y", "T", "turb")
 PARCEL_FIELDS = ("pos", "vel", "d", "T")
 MIST_FIELDS = ("rho", "rhoU", "rhoE", "rhoY", "T")
@@ -2544,16 +2605,19 @@ def _mist_gate_case(dev: str):
             int(diag["chem_lanes"]))
 
 
-def spray_gates(torch):
+def spray_gates(torch, card=None):
     """The card-against-CPU gates of the spray and mist phases, side by side
     in worker processes (all host-bound), before anything is timed: the
     aachenBomb at 11 x 20 x 11 (the CPU replays the card's draws; gas
     fields within 1e-8 of their largest value, parcel position, velocity,
     diameter and temperature within 1e-8), the RAS channel (KOmegaSST with
-    wall functions, 1e-8) and the mist tube (1e-8)."""
+    wall functions, 1e-8) and the mist tube (1e-8). `card`: the future of
+    the aachenBomb's card side submitted in an earlier window of workers
+    (_spray_gate_case on "cuda"), else submitted here."""
     t0 = time.perf_counter()
     with _pool(5) as pool:
-        card = pool.submit(_spray_gate_case, "cuda")
+        if card is None:
+            card = pool.submit(_spray_gate_case, "cuda")
         ras = {d: pool.submit(_ras_gate_case, d) for d in ("cuda", "cpu")}
         mist = {d: pool.submit(_mist_gate_case, d) for d in ("cuda", "cpu")}
         g_card, p_card, draws, n_act = card.result()
@@ -2725,7 +2789,7 @@ def phase_spray(torch, K):
 def phase_mist(torch, K):
     """The water-mist detonation through HighSpeedSpraySolver: MIST_N cells
     with MIST_PARCELS parcels of MIST_NP droplets in float32, the mist
-    released in the first step (soi at half a step); 2 warm-up and
+    released in the first step (soi at half a step); 1 warm-up and
     SPRAY_STEPS timed steps (gj_inverse must launch); one step with the
     cloud's evolve and the chemistry split timed inside it (phase_kernels
     holds gj_inverse at the split's lanes). Returns (launch counts of the
@@ -2744,11 +2808,10 @@ def phase_mist(torch, K):
     print(f"mist path: {MIST_N}-cell tube float32, {MIST_PARCELS} parcels x "
           f"{MIST_NP:g}, soi {0.5 * dt:.4e} s (inside the first step), dt "
           f"{dt:.6e} s, built in {time.perf_counter() - t0:.2f} s")
-    for i in range(2):
-        t0 = time.perf_counter()
-        state, diag = solver.step(state, dt)
-        torch.cuda.synchronize()
-        print(f"mist warm-up step {i + 1}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    state, diag = solver.step(state, dt)
+    torch.cuda.synchronize()
+    print(f"mist warm-up step: {time.perf_counter() - t0:.3f} s")
     rec = _Recorder(solver)
     state, diag, counts, wall = _timed_steps(torch, K, rec, state, dt,
                                              SPRAY_STEPS)
@@ -2791,7 +2854,7 @@ def phase_mist(torch, K):
 
 # ------------------------------------------- the face-list backend's paths
 
-FL_STEPS = 5                 # timed steps of hsfl, fgmfl and sprayfl
+FL_STEPS = 2                 # timed steps of hsfl, fgmfl and sprayfl
 FL_FIELDS = ("p", "T", "rho", "ha", "Y")
 FGMFL_FIELDS = ("rho", "p", "Z", "Zvar", "c", "cvar", "T", "He", "k", "eps")
 
@@ -2870,7 +2933,15 @@ def _fl_timed(torch, K, solver, state, dt, warm, steps, label, n_cells):
     return state, diag, counts, ms
 
 
-def phase_fljet(torch, K):
+def _fljet_submit(pool) -> dict:
+    """Submit phase_fljet's gate runs."""
+    return {(dev, w): pool.submit(_fljet_gate_case, dev, w)
+            for dev, w in (("cuda", "plan"), ("cpu", "plan"),
+                           ("cuda", "noplan"), ("cuda", "sjet"),
+                           ("cpu", "sjet"))}
+
+
+def phase_fljet(torch, K, runs=None):
     """The structured jet on the face-list backend with shift plans
     (deepflame_torch.cases.jet_flame_3d_les_plan). Gates first, in worker
     processes, in float64 at n = 8 (16 x 8 x 8), 2 steps: the plan step on
@@ -2880,7 +2951,7 @@ def phase_fljet(torch, K):
     (jet_flame_3d_les) on the card equal, within 1e-8, to the same
     deviation on the CPU path (the JAX package's two backends disagree as
     much at the jet's inlet profiles, ROADMAP section C). Then 128 x 64 x
-    64 in float32, dt 5e-7 s, 2 warm-up and 2 timed steps: stencil7_apply
+    64 in float32, dt 5e-7 s, 1 warm-up and STEPS timed steps: stencil7_apply
     and gj_inverse must launch, ell_matvec must not. Then the AMG setup of
     its pressure mesh, timed, and one step of the timed state with the
     AMG-preconditioned pressure CG beside one with Jacobi: fewer pressure
@@ -2890,12 +2961,10 @@ def phase_fljet(torch, K):
     from deepflame_torch.cases import jet_flame_3d_les_plan
     from deepflame_torch.ops.amg_fl import make_amg_fl
     t0 = time.perf_counter()
-    with _pool(5) as pool:
-        runs = {(dev, w): pool.submit(_fljet_gate_case, dev, w)
-                for dev, w in (("cuda", "plan"), ("cpu", "plan"),
-                               ("cuda", "noplan"), ("cuda", "sjet"),
-                               ("cpu", "sjet"))}
-        r = {k: v.result()[0] for k, v in runs.items()}
+    if runs is None:
+        with _pool(5) as pool:
+            runs = _fljet_submit(pool)
+    r = {k: v.result()[0] for k, v in runs.items()}
     _field_gate(torch, "fljet n=8 float64, plan on the card vs the CPU",
                 r["cuda", "plan"], r["cpu", "plan"], FL_FIELDS, 1e-8,
                 ("U",), 1e-6)
@@ -2928,7 +2997,7 @@ def phase_fljet(torch, K):
           f"{solver.combustion.n_bins} chemistry bins, dt {JET_DT:g} s), "
           f"built in {time.perf_counter() - t0:.2f} s")
     T_before = state.T.clone()
-    state, diag, counts, ms = _fl_timed(torch, K, solver, state, JET_DT, 2,
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, JET_DT, 1,
                                         STEPS, "fljet", n_cells)
     check(counts["stencil7_apply"] > 0 and counts["gj_inverse"] > 0
           and counts["ell_matvec"] == 0,
@@ -2990,23 +3059,29 @@ def _hsfl_gate_case(dev: str, which: str):
     return (out if which == "fl" else _flat_fields(out)), diag["chem_lanes"]
 
 
-def phase_hsfl(torch, K):
+def _hsfl_submit(pool) -> dict:
+    """Submit phase_hsfl's gate runs."""
+    return {k: pool.submit(_hsfl_gate_case, *k)
+            for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"))}
+
+
+def phase_hsfl(torch, K, runs=None):
     """The 2D detonation channel on the face-list backend
     (deepflame_torch.cases.detonation_2d_h2_fl, shift plan). Gates first,
     in workers: 64 x 8 float64, 2 steps, the card against the CPU within
     1e-8, and against the structured step (detonation_2d_h2) on the card
     within 5e-3 (the JAX package's bound for its two backends, whose
     boundary-adjacent gradient stencils differ). Then 2000 x 100 in float32
-    (HLLC, RK2, vanLeer, split chemistry), 2 warm-up and FL_STEPS timed
+    (HLLC, RK2, vanLeer, split chemistry), 1 warm-up and FL_STEPS timed
     steps (gj_inverse must launch); the chemistry split timed inside one
     more step. Returns (launch counts of the timed steps, ms/step)."""
     from deepflame_torch.cases import detonation_2d_h2_fl, detonation_dt
     from deepflame_torch.solvers.high_speed_fl import HighSpeedSolverFL
     t0 = time.perf_counter()
-    with _pool(3) as pool:
-        runs = {k: pool.submit(_hsfl_gate_case, *k)
-                for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"))}
-        r = {k: v.result() for k, v in runs.items()}
+    if runs is None:
+        with _pool(3) as pool:
+            runs = _hsfl_submit(pool)
+    r = {k: v.result() for k, v in runs.items()}
     _field_gate(torch, "hsfl 64 x 8 float64, 2 steps, card vs CPU",
                 r["cuda", "fl"][0], r["cpu", "fl"][0], HS_FIELDS, 1e-8)
     _field_gate(torch, "hsfl 64 x 8 float64 on the card, face-list vs "
@@ -3025,7 +3100,7 @@ def phase_hsfl(torch, K):
           f"{solver.config.rk_order}, {solver.config.limiter}, split "
           f"chemistry), dt {dt:.6e} s, built in "
           f"{time.perf_counter() - t0:.2f} s")
-    state, diag, counts, ms = _fl_timed(torch, K, solver, state, dt, 2,
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, dt, 1,
                                         FL_STEPS, "hsfl", n_cells)
     check(counts["gj_inverse"] > 0, f"hsfl: gj_inverse was not launched: "
                                     f"{counts}")
@@ -3060,7 +3135,14 @@ def _fgmfl_gate_case(dev: str, which: str):
     return _flat_fields(out) if which == "sjet" else out
 
 
-def phase_fgmfl(torch, K):
+def _fgmfl_submit(pool) -> dict:
+    """Submit phase_fgmfl's gate runs."""
+    return {k: pool.submit(_fgmfl_gate_case, *k)
+            for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"),
+                      ("cuda", "ras"), ("cpu", "ras"))}
+
+
+def phase_fgmfl(torch, K, runs=None):
     """The Sandia D jet on the face-list backend
     (deepflame_torch.cases.sandia_d_fgm_2d_fl, shift plan). Gates first, in
     workers, 96 x 48 float64, 2 steps: without RAS, the card against the
@@ -3069,7 +3151,7 @@ def phase_fgmfl(torch, K):
     Then a DeepFGM distilled on the card from the table by train_deep_fgm
     (its seconds, and Tf's RMS deviation from the table at 20,000 seeded
     points), and FGM_NX x FGM_NY in float32 with RNG k-epsilon and the
-    DeepFGM manifold, 2 warm-up and FL_STEPS timed steps (stencil7_apply
+    DeepFGM manifold, 1 warm-up and FL_STEPS timed steps (stencil7_apply
     must launch); the manifold reads and the RAS advance timed inside one
     more step. Returns (launch counts of the timed steps, ms/step)."""
     import numpy as np
@@ -3078,11 +3160,10 @@ def phase_fgmfl(torch, K):
                                                 train_deep_fgm)
     from deepflame_torch.solvers.fgm_fl import FGMSolverFL
     t0 = time.perf_counter()
-    with _pool(5) as pool:
-        runs = {k: pool.submit(_fgmfl_gate_case, *k)
-                for k in (("cuda", "fl"), ("cpu", "fl"), ("cuda", "sjet"),
-                          ("cuda", "ras"), ("cpu", "ras"))}
-        r = {k: v.result() for k, v in runs.items()}
+    if runs is None:
+        with _pool(5) as pool:
+            runs = _fgmfl_submit(pool)
+    r = {k: v.result() for k, v in runs.items()}
     _field_gate(torch, "fgmfl 96 x 48 float64, 2 steps, card vs CPU",
                 r["cuda", "fl"], r["cpu", "fl"], FGM_FIELDS, 1e-8, ("U",),
                 1e-6)
@@ -3123,7 +3204,7 @@ def phase_fgmfl(torch, K):
           f"DeepFGM manifold, dt {FGM_DT:g} s, built in "
           f"{time.perf_counter() - t0:.2f} s")
     T_before = state.T.clone()
-    state, diag, counts, ms = _fl_timed(torch, K, solver, state, FGM_DT, 2,
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, FGM_DT, 1,
                                         FL_STEPS, "fgmfl", n_cells)
     check(counts["stencil7_apply"] > 0, f"fgmfl: stencil7_apply was not "
                                         f"launched: {counts}")
@@ -3197,7 +3278,7 @@ def phase_sprayfl(torch, K, gm):
     x 11 float64, 2 steps, the CPU replaying the card's draws: gas fields
     and the active parcels within 1e-8 (the empty slots are evolved too,
     but hold no droplets: their values are no result). Then AACHEN_NXZ x AACHEN_NY x AACHEN_NXZ in
-    float32 on `gm`, 2 warm-up and FL_STEPS timed steps, 50 parcels a step
+    float32 on `gm`, 1 warm-up and FL_STEPS timed steps, 50 parcels a step
     (ell_matvec must launch; gj_inverse must not: the inert chamber's RK23
     fast tier accepts every cell); the cloud's evolve, the RAS advance and
     the chemistry timed inside one more step. Returns (launch counts of
@@ -3233,7 +3314,7 @@ def phase_sprayfl(torch, K, gm):
           f"{solver.cloud.cloud.max_parcels} parcel slots, dt "
           f"{AACHEN_DT:g} s, built in {time.perf_counter() - t0:.2f} s")
     T_before = state.gas.T.clone()
-    state, diag, counts, ms = _fl_timed(torch, K, solver, state, AACHEN_DT, 2,
+    state, diag, counts, ms = _fl_timed(torch, K, solver, state, AACHEN_DT, 1,
                                         FL_STEPS, "sprayfl", n_cells)
     check(counts["ell_matvec"] > 0 and counts["gj_inverse"] == 0,
           f"sprayfl: launches {counts} (ell_matvec must launch, gj_inverse "
@@ -3266,7 +3347,7 @@ def phase_sprayfl(torch, K, gm):
 
 # --------------------------------------------------------------------- amr
 
-AMR_STEPS = 2                  # timed coarse steps of the 2D row patches
+AMR_STEPS = 1                  # timed coarse steps of the 2D row patches
 AMR_1D_WARM, AMR_1D_STEPS = 1, 1   # the 1D nest's warm-up and timed steps
 AMR_1D_N = 300                 # the 1D tube's coarse cells (the example's)
 AMR_GATES = ("front", "curved", "moving", "nested")
@@ -3474,7 +3555,13 @@ class _DrainSpy:
         return [n for n, _ in rows], [g for _, g in rows]
 
 
-def phase_amr(torch, K):
+def _amr_submit(pool) -> dict:
+    """Submit phase_amr's gate runs, card and CPU sides."""
+    return {(k, d): pool.submit(_amr_gate, k, d)
+            for k in AMR_GATES for d in ("cuda", "cpu")}
+
+
+def phase_amr(torch, K, runs=None):
     """AMR on the density-based solver. Gates first, side by side in worker
     processes (card and CPU, float64; see _amr_gate): FrontPatchAMR2D on
     the 64 x 8 channel and on the curved front, MovingPatchAMR with reflux
@@ -3485,34 +3572,35 @@ def phase_amr(torch, K):
     amounts. Then the two AMR paths in float32 (_amr_path, _amr_tube), and
     gj_inverse against its plain version and the library at the smallest
     and the largest fine drain of the row patches' timed steps
-    (_gj_rows_fresh). Returns
+    (_gj_rows_fresh). `runs`: those _amr_submit gave (done), else
+    submitted here. Returns
     ({path: launch counts of its timed steps}, {path: ms per coarse step},
     [those gj_inverse rows])."""
     t0 = time.perf_counter()
-    with _pool(2 * len(AMR_GATES)) as pool:
-        runs = {(k, d): pool.submit(_amr_gate, k, d)
-                for k in AMR_GATES for d in ("cuda", "cpu")}
-        for kind in AMR_GATES:
-            (card, dc), (ref, dr) = (runs[kind, "cuda"].result(),
-                                     runs[kind, "cpu"].result())
-            _tree_gate(torch, f"amr {kind} gate float64, "
-                              f"{len(dc['offsets'])} steps, card vs CPU",
-                       card, ref, 1e-8)
-            print(f"amr {kind} gate: offsets after each step "
-                  f"{dc['offsets']}; last step's drains, coarse "
-                  f"{dc['lanes']} lanes, fine {dc['fine_lanes']}")
-            check(dc["offsets"] == dr["offsets"],
-                  f"amr {kind}: the card's offsets {dc['offsets']} are not "
-                  f"the CPU's {dr['offsets']}")
-            if kind == "curved":
-                seen = [tuple(o) for o in dc["offsets"]]
-                check(len(set(seen)) > 1 and any(len(set(o)) > 1
-                                                 for o in seen),
-                      f"amr curved: the rows did not move, or moved alike: "
-                      f"{seen}")
-            else:
-                check(min(dc["fine_lanes"]) > 0,
-                      f"amr {kind}: no fine cell burned in the gate")
+    if runs is None:
+        with _pool(2 * len(AMR_GATES)) as pool:
+            runs = _amr_submit(pool)
+    for kind in AMR_GATES:
+        (card, dc), (ref, dr) = (runs[kind, "cuda"].result(),
+                                 runs[kind, "cpu"].result())
+        _tree_gate(torch, f"amr {kind} gate float64, "
+                          f"{len(dc['offsets'])} steps, card vs CPU",
+                   card, ref, 1e-8)
+        print(f"amr {kind} gate: offsets after each step "
+              f"{dc['offsets']}; last step's drains, coarse "
+              f"{dc['lanes']} lanes, fine {dc['fine_lanes']}")
+        check(dc["offsets"] == dr["offsets"],
+              f"amr {kind}: the card's offsets {dc['offsets']} are not "
+              f"the CPU's {dr['offsets']}")
+        if kind == "curved":
+            seen = [tuple(o) for o in dc["offsets"]]
+            check(len(set(seen)) > 1 and any(len(set(o)) > 1
+                                             for o in seen),
+                  f"amr curved: the rows did not move, or moved alike: "
+                  f"{seen}")
+        else:
+            check(min(dc["fine_lanes"]) > 0,
+                  f"amr {kind}: no fine cell burned in the gate")
     print(f"amr gates: {time.perf_counter() - t0:.1f} s")
     counts, ms = {}, {}
     counts["amr"], ms["amr"], fine_lanes = _amr_path(torch, K)
@@ -3894,7 +3982,7 @@ def _dist_timed(torch, K, dist, ds, dt, steps: int):
 
 
 def _dist_tgv96(torch, K, dev) -> dict:
-    """The 96^3 stiff TGV over (4, 1, 1) ranks in float32: 1 warm-up and 2
+    """The 96^3 stiff TGV over (4, 1, 1) ranks in float32: 1 warm-up and STEPS
     timed steps, then one step with the cross-shard chemistry balance."""
     from deepflame_torch.parallel import DistributedLowMach
     t0 = time.perf_counter()
@@ -4685,6 +4773,445 @@ def _dnnloop_rows_fresh(lanes, dx: float) -> dict:
                           for L in lanes]
     return rows
 
+# ------------------------- the examples' own families (A16-A21 of ROADMAP)
+
+EX_GATE_STEPS = 2
+# float64 gates: (builder, its small-size options)
+EX_GATES = {
+    "flame_1d": dict(n=32),
+    "reacting_tgv_2d": dict(n=8),
+    # cells = 6: the coarsest mesh with a cell centre in the 2 mm jet (at
+    # cells = 4 no fuel enters)
+    "jet_flame_2d": dict(n=6, model="EDC"),
+    "detonation_1d": dict(n=40, length=0.2),
+    "shock_dry": dict(n=24, dry=True),
+    "shock_fog": dict(n=24, dry=False),
+}
+EX_DROPLET_GATE_STEPS = 10
+EX_WORKERS = 6                 # processes of the gates and the shock's runs
+EX_LM_FIELDS = ("rho", "U", "p", "ha", "Y", "T", "phi")
+EX_SHOCK_RH = 417.0            # m/s: examples/shock_watermist_1d.py:144-149
+EX_TGV_STEPS = 2               # timed steps of the 2D TGV, a write each
+# timed steps (after 1 warm-up) of each other path
+EX_STEPS = {"flame_1d": 1, "jet_flame_2d": 1, "detonation_1d": 1,
+            "shock_dry": 2, "shock_fog": 2}
+
+
+def _ex_build(name: str, dev: str, dtype, **kw):
+    """(solver, state, dt, info) of one family on `dev`."""
+    from deepflame_torch import cases
+    if name.startswith("shock"):
+        return cases.shock_watermist_1d(MECH, dtype=dtype, device=dev, **kw)
+    if name == "reacting_tgv_2d":
+        solver, state, fos, control = cases.reacting_tgv_2d(
+            MECH, dtype=dtype, device=dev, **kw)
+        return solver, state, control.delta_t, dict(fos=fos, control=control)
+    return getattr(cases, name)(MECH, dtype=dtype, device=dev, **kw)
+
+
+def _ex_fields(name: str, s) -> dict:
+    """A family's state as numpy for its gate: the low-Mach fields with
+    the face flux as one array over the three axes (a deviation over its
+    largest |phi|: the jet's transverse flux alone peaks at round-off's
+    scale) and the k-epsilon fields; the density-based fields; with the fog
+    the parcels too."""
+    import numpy as np
+    if name in ("flame_1d", "reacting_tgv_2d", "jet_flame_2d"):
+        out = _as_numpy(s, EX_LM_FIELDS)
+        out["phi"] = np.concatenate([f.ravel() for f in out["phi"]])
+        if name == "jet_flame_2d":
+            out.update({f"turb{i}": t.cpu().numpy()
+                        for i, t in enumerate(s.turb)})
+        return out
+    if name == "shock_fog":
+        return {**_as_numpy(s.gas, HS_FIELDS),
+                **{"cloud_" + k: v for k, v in
+                   _as_numpy(s.cloud, PARCEL_FIELDS).items()}}
+    return _as_numpy(s, HS_FIELDS)
+
+
+def _ex_gate_case(name: str, dev: str):
+    """In a worker: EX_GATE_STEPS float64 steps of one family at its gate
+    size (EX_GATES) on `dev`. Returns (fields as numpy, the Krylov
+    iterations of each step, the chemistry lanes of the last step)."""
+    torch = _worker_torch()
+    solver, s, dt, _ = _ex_build(name, dev, torch.float64, **EX_GATES[name])
+    iters = []
+    for _ in range(EX_GATE_STEPS):
+        s, diag = solver.step(s, dt)
+        iters.append({k: int(v) for k, v in diag.items()
+                      if k.startswith("iters")})
+    return _ex_fields(name, s), iters, int(diag.get("chem_lanes", 0))
+
+
+def _ex_droplet_gate(dev: str):
+    """In a worker: EX_DROPLET_GATE_STEPS steps of each of the droplet's
+    runs in float64 on `dev`: u_p after every step and the parcel arrays."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import DROPLET_RUNS, droplet_relaxation
+    out = {}
+    for d_um, t_end in DROPLET_RUNS:
+        u, c = droplet_relaxation(d_um * 1e-6, t_end, device=dev,
+                                  steps=EX_DROPLET_GATE_STEPS)
+        out[f"u_{d_um}"] = u.cpu().numpy()
+        out.update({f"{k}_{d_um}": v for k, v in
+                    _as_numpy(c, PARCEL_FIELDS).items()})
+    return out
+
+
+def _ex_shock_anchor(dry: bool):
+    """In a worker: examples/shock_watermist_1d.py's own run on the card,
+    float32 at 240 cells to t_end = 2 ms (1,200 steps), the shock read
+    every n_steps // 40 steps on the example's clock; the speed fitted
+    over x in (0.1, 1.0) m. Returns (times, fronts, speed, seconds)."""
+    torch = _worker_torch()
+    from deepflame_torch.cases import front_speed, shock_front
+    solver, s, dt, info = _ex_build("shock_dry" if dry else "shock_fog",
+                                    "cuda", torch.float32, dry=dry)
+    t0, t_wall = 0.0, time.perf_counter()
+    times, fronts = [], []
+    for i in range(info["n_steps"]):
+        s, _ = solver.step(s, dt)
+        t0 += dt
+        if (i + 1) % info["every"] == 0:
+            p = info["prims"](s)[2]
+            check(bool(torch.isfinite(p).all()), "examples shock: diverged")
+            times.append(t0)
+            fronts.append(shock_front(p, info["x"]))
+    return (times, fronts, front_speed(times, fronts, 0.1, 1.0),
+            time.perf_counter() - t_wall)
+
+
+def _ex_check_gates(torch, jobs) -> None:
+    """The float64 gates, card against the port's CPU path: every field
+    and parcel array within 1e-8 of its largest value, the low-Mach
+    families' Krylov iterations equal after each step."""
+    for name, opts in EX_GATES.items():
+        (a, ia, la), (b, ib, lb) = (jobs[name, "cuda"].result(),
+                                    jobs[name, "cpu"].result())
+        _field_gate(torch, f"examples {name} {opts} float64, "
+                    f"{EX_GATE_STEPS} steps", a, b, tuple(a), 1e-8)
+        print(f"examples {name} gate: iterations {json.dumps(ia)}, "
+              f"chemistry lanes {la}")
+        check(ia == ib, f"examples {name}: iterations {ia} vs {ib}")
+        check(la == lb, f"examples {name}: chemistry lanes {la} vs {lb}")
+    check(jobs["detonation_1d", "cuda"].result()[2] >= 1,
+          "examples detonation gate: no driver cell in the drain")
+    a, b = jobs["droplet", "cuda"].result(), jobs["droplet", "cpu"].result()
+    _field_gate(torch, f"examples droplet, {EX_DROPLET_GATE_STEPS} steps "
+                "of each diameter, float64", a, b, tuple(a), 1e-8)
+
+
+def _ex_timed(torch, K, name, solver, s, dt, steps, spy=None):
+    """1 warm-up step, then `steps` timed ones (launch counts set to 0 just
+    before, read just after); prints ms/step, cell-updates/s and peak
+    GiB. Returns (state, diag, counts, ms per step)."""
+    t0 = time.perf_counter()
+    s, _ = solver.step(s, dt)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    if spy is None:
+        s, diag, c, wall = _timed_steps(torch, K, solver, s, dt, steps)
+    else:
+        with spy:
+            s, diag, c, wall = _timed_steps(torch, K, solver, s, dt, steps)
+    ms = wall / steps * 1e3
+    gas = s.gas if hasattr(s, "gas") else s
+    cells = gas.T.numel()
+    print(f"examples {name}: warm-up {warm:.3f} s, {ms:.2f} ms/step over "
+          f"{steps} step(s), {cells / (wall / steps):.4e} cell-updates/s "
+          f"({cells} cells), peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB; launches {json.dumps(c)}; diagnostics " + json.dumps(
+              {k: float(v) for k, v in diag.items()
+               if k.startswith(("iters", "chem"))}))
+    check(all(bool(torch.isfinite(getattr(gas, k)).all())
+              for k in ("T", "rho")), f"examples {name}: non-finite fields")
+    return s, diag, c, ms
+
+
+def _ex_submit(pool) -> dict:
+    """Submit phase_examples' worker jobs: the float64 gates (card and CPU
+    sides), the droplet's gate and the shock's own runs, the longest first
+    (the detonation's CPU side, its driver cell's float64 drain, about 60
+    s; the shock's runs)."""
+    jobs = {("detonation_1d", "cpu"): pool.submit(_ex_gate_case,
+                                                   "detonation_1d", "cpu")}
+    jobs.update({("shock", dry): pool.submit(_ex_shock_anchor, dry)
+                 for dry in (False, True)})
+    jobs.update({(name, dev): pool.submit(_ex_gate_case, name, dev)
+                 for name in EX_GATES for dev in ("cuda", "cpu")
+                 if (name, dev) not in jobs})
+    jobs.update({("droplet", dev): pool.submit(_ex_droplet_gate, dev)
+                 for dev in ("cuda", "cpu")})
+    return jobs
+
+
+def _ex_gates(torch, jobs) -> None:
+    """The results of _ex_submit's jobs: the float64 gates
+    (_ex_check_gates), then the shock's runs: the dry speed within 3 % of
+    the Rankine-Hugoniot EX_SHOCK_RH, the fog's printed beside it."""
+    t0 = time.perf_counter()
+    _ex_check_gates(torch, jobs)
+    shock = {dry: jobs["shock", dry].result() for dry in (True, False)}
+    print(f"examples gates and shock runs: waited {time.perf_counter() - t0:.1f}"
+          f" s for the workers")
+    for dry, (times, fronts, v, sec) in shock.items():
+        label = "dry" if dry else "through the fog"
+        print(f"examples shock {label}: 240 cells float32, 1,200 steps "
+              f"to 2 ms in {sec:.1f} s; fronts (m) " + json.dumps(
+                  [round(x, 4) for x in fronts]) + f"; speed over x in "
+              f"(0.1, 1.0) m {v} m/s (Rankine-Hugoniot "
+              f"{EX_SHOCK_RH:g} m/s)")
+        check(v is not None, f"examples shock {label}: no speed fit")
+    v_dry, v_fog = shock[True][2], shock[False][2]
+    check(abs(v_dry - EX_SHOCK_RH) <= 0.03 * EX_SHOCK_RH,
+          f"examples shock dry: {v_dry:.1f} m/s, not within 3 % of "
+          f"{EX_SHOCK_RH:g}")
+    # printed, not gated: the example expects the fog's shock to be
+    # slower, but the evaporated vapour enters without its enthalpy of
+    # formation (JAX's model, reproduced; ROADMAP section C), so
+    # evaporation heats the gas and the shock speeds up
+    print(f"examples shock: through the fog {v_fog:.1f} m/s against "
+          f"{v_dry:.1f} dry ({'slower' if v_fog < v_dry else 'faster'}; "
+          f"the example expects slower)")
+
+
+def phase_examples(torch, K, gated: bool = False):
+    """The examples' own families (module docstring, phase 17): the float64
+    gates, card against CPU, and the shock's own runs, each in a worker
+    side by side (_ex_submit, _ex_gates; with `gated` the caller has run
+    them already, beside another phase's gates); then each family at its
+    example's mesh and options, 1 warm-up and EX_STEPS timed steps (the
+    TGV EX_TGV_STEPS through run_case), with the launch counts set to 0
+    just before the timed steps and read just after; the droplet against
+    its reference integration; the kernels at these paths' shapes in a
+    fresh worker. Returns ({path: launch counts}, {kernel: rows}, {path:
+    ms per step})."""
+    with _pool(1) as rows_pool:
+        rows_pool.submit(_worker_ready)
+        if not gated:
+            with _pool(EX_WORKERS) as pool:
+                _ex_gates(torch, _ex_submit(pool))
+        counts, ms, lanes = _ex_paths(torch, K)
+        rows = rows_pool.submit(_ex_rows_fresh, lanes).result()
+    for kernel, krows in rows.items():
+        for row in krows:
+            print(f"{kernel} ({row['path']}): " + json.dumps(row))
+    return counts, rows, ms
+
+
+def _ex_paths(torch, K):
+    """phase_examples' timed runs. Returns ({path: launch counts}, {path:
+    ms per step}, {(n, lanes, dtype): the paths whose drains launched
+    gj_inverse at that width})."""
+    import tempfile
+    import numpy as np
+    from deepflame_torch import cases
+    from deepflame_torch.runtime.driver import run_case
+    from deepflame_torch.utils.flame_speed import flame_position
+
+    counts, ms, lanes = {}, {}, {}
+    f32, f64 = torch.float32, torch.float64
+    need = ("stencil7_apply", "helmholtz7_apply", "gj_inverse")
+
+    def drains(spy, path, dtype):
+        for (_, dt_name, (n, L)), c in spy.table().get("gj_inverse",
+                                                        {}).items():
+            lanes.setdefault((int(n), int(L), dt_name), set()).add(path)
+
+    # A16: float64, the example's default; one float32 step beside it (in
+    # float32, at rtol 1e-4, the RK23 fast tier accepts every lane at this
+    # dt, so no implicit trip launches gj_inverse)
+    solver, s, dt, info = _ex_build("flame_1d", "cuda", f32)
+    _, _, counts["ex-flame_1d-f32"], ms["ex-flame_1d-f32"] = _ex_timed(
+        torch, K, "flame_1d 256 cells float32", solver, s, dt, 1)
+    solver, s, dt, info = _ex_build("flame_1d", "cuda", f64)
+    spy = _LaunchArgs(K)
+    s, diag, c, ms["ex-flame_1d"] = _ex_timed(torch, K, "flame_1d 256 cells "
+                                              "float64", solver, s, dt,
+                                              EX_STEPS["flame_1d"], spy)
+    drains(spy, "flame_1d", f64)
+    counts["ex-flame_1d"] = c
+    T = s.T.reshape(-1).cpu().numpy()
+    print(f"examples flame_1d after {1 + EX_STEPS['flame_1d']} steps of "
+          f"{dt:.6e} s: front {flame_position(info['x'], T) * 1e3:.4f} mm, "
+          f"T_max {T.max():.2f} K (S_L needs about 400 steps: not fitted)")
+    check(all(c[k] > 0 for k in need), f"examples flame_1d: a kernel of "
+          f"the path did not launch: {c}")
+    del solver, s
+
+    # A17 through run_case, its function objects writing every step
+    with tempfile.TemporaryDirectory() as tmp:
+        solver, s0, fos, control = cases.reacting_tgv_2d(
+            MECH, dtype=f32, device="cuda", out_dir=tmp)
+        dt = control.delta_t
+        t0 = time.perf_counter()
+        solver.step(s0, dt)                               # warm-up
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        rec = _Recorder(solver)
+        ctrl = dataclasses.replace(control, end_time=EX_TGV_STEPS * dt,
+                                   write_interval=dt)
+        spy = _LaunchArgs(K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with spy:
+            s = run_case(rec, s0, ctrl, function_objects=fos,
+                         fields_fn=cases.tgv_fields, log_every=EX_TGV_STEPS)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dict(K.launches)
+        files = _files(tmp)
+    drains(spy, "reacting_tgv_2d", f32)
+    counts["ex-reacting_tgv_2d"] = c
+    ms["ex-reacting_tgv_2d"] = wall / EX_TGV_STEPS * 1e3
+    cells = s.T.numel()
+    print(f"examples reacting_tgv_2d {s.T.shape[0]} x {s.T.shape[1]} "
+          f"float32 through run_case: "
+          f"warm-up {warm:.3f} s, {ms['ex-reacting_tgv_2d']:.2f} ms/step "
+          f"over {EX_TGV_STEPS} steps with a write each, "
+          f"{cells / (wall / EX_TGV_STEPS):.4e} cell-updates/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{json.dumps(c)}; iterations " + json.dumps(
+              [{k: int(v) for k, v in d.items() if k.startswith("iters")}
+               for d in rec.diags]) + f"; T [{float(s.T.min()):.1f}, "
+          f"{float(s.T.max()):.1f}] K; files " + json.dumps(
+              {k: list(v.shape) for k, v in files.items()}))
+    check(all(c[k] > 0 for k in need), f"examples reacting_tgv_2d: a "
+          f"kernel of the path did not launch: {c}")
+    mm = files[os.path.join("fieldMinMax", "fieldMinMax.dat")]
+    lines = [v for k, v in files.items() if k.startswith("sample")]
+    n, L = s.T.shape[0], 2.0 * math.pi * 1e-3
+    check(mm.shape == (EX_TGV_STEPS, 17) and len(lines) == EX_TGV_STEPS
+          and all(v.shape == (n, 2) for v in lines),
+          "examples reacting_tgv_2d: not one row or line a write")
+    check(all(bool(np.isfinite(v).all()) for v in [mm] + lines),
+          "examples reacting_tgv_2d: non-finite function-object output")
+    check(all(np.allclose(v[:, 0], (np.arange(n) + 0.5) * L / n,
+                          rtol=1e-12) for v in lines),
+          "examples reacting_tgv_2d: line coordinates are not the centres")
+    del solver, s, s0
+
+    # A18, float64 as the example forces
+    solver, s, dt, info = _ex_build("jet_flame_2d", "cuda", f64)
+    spy = _LaunchArgs(K)
+    s, diag, c, ms["ex-jet_flame_2d"] = _ex_timed(
+        torch, K, "jet_flame_2d 96 x 24 EDC float64", solver, s, dt,
+        EX_STEPS["jet_flame_2d"], spy)
+    drains(spy, "jet_flame_2d", f64)
+    counts["ex-jet_flame_2d"] = c
+    print(f"examples jet_flame_2d: T [{float(s.T.min()):.1f}, "
+          f"{float(s.T.max()):.1f}] K, Y_H2 max "
+          f"{float(s.Y[info['h2_index']].max()):.4f}, k max "
+          f"{float(s.turb[0].max()):.2f}")
+    check(all(c[k] > 0 for k in need), f"examples jet_flame_2d: a kernel "
+          f"of the path did not launch: {c}")
+    del solver, s
+
+    # A19, float32
+    solver, s, dt, info = _ex_build("detonation_1d", "cuda", f32)
+    spy = _LaunchArgs(K)
+    s, diag, c, ms["ex-detonation_1d"] = _ex_timed(
+        torch, K, "detonation_1d 625 cells float32", solver, s, dt,
+        EX_STEPS["detonation_1d"], spy)
+    drains(spy, "detonation_1d", f32)
+    counts["ex-detonation_1d"] = c
+    fr = cases.detonation_front(solver, s, info["x"], info["h2_index"])
+    print(f"examples detonation_1d after {1 + EX_STEPS['detonation_1d']} "
+          f"steps of {dt:.6e} s: front {fr['x_front'] * 1e3:.2f} mm, p_max "
+          f"{fr['p_max'] / 1e3:.1f} kPa, T_max {fr['T_max']:.1f} K (the "
+          f"speed needs about {info['n_steps']} steps: not fitted)")
+    check(c["gj_inverse"] > 0, f"examples detonation_1d: gj_inverse did "
+          f"not launch: {c}")
+    del solver, s
+
+    # A20, float32, dry and through the fog: no kernel on the path
+    for name in ("shock_dry", "shock_fog"):
+        solver, s, dt, info = _ex_build(name, "cuda", f32,
+                                        dry=name == "shock_dry")
+        s, diag, c, ms["ex-" + name] = _ex_timed(
+            torch, K, f"{name} 240 cells float32", solver, s, dt,
+            EX_STEPS[name])
+        counts["ex-" + name] = c
+        check(all(v == 0 for v in c.values()), f"examples {name}: a kernel "
+              f"launched: {c}")
+
+    # A21: the example's three runs whole, float64, against the reference
+    worst, n_steps = 0.0, 0
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = []
+    for d_um, t_end in cases.DROPLET_RUNS:
+        u, _ = cases.droplet_relaxation(d_um * 1e-6, t_end, device="cuda")
+        results.append((d_um, t_end, u))
+        n_steps += u.numel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(K.launches)
+    counts["ex-droplet"] = c
+    ms["ex-droplet"] = wall / n_steps * 1e3
+    for d_um, t_end, u in results:
+        _, ref = cases.droplet_reference(d_um * 1e-6, t_end)
+        err = abs(float(u[-1]) - ref[-1]) / abs(ref[-1])
+        worst = max(worst, err)
+        print(f"examples droplet {d_um} um, t_end {t_end:g} s, {u.numel()} "
+              f"steps: u_p {float(u[-1]):.4f} m/s, reference {ref[-1]:.4f},"
+              f" relative error {err:.3e}")
+    print(f"examples droplet: {ms['ex-droplet']:.3f} ms a parcel step over "
+          f"{n_steps} steps, float64; worst relative error {worst:.3e} "
+          f"(the example's limit 2e-2); launches {json.dumps(c)}")
+    check(worst < 0.02, f"examples droplet: {worst:.3e} from the reference")
+    check(all(v == 0 for v in c.values()), f"examples droplet: a kernel "
+          f"launched: {c}")
+    return counts, ms, lanes
+
+
+def _ex_rows_fresh(lanes) -> dict:
+    """In the fresh worker of phase_examples: each kernel against its plain
+    version at the examples' shapes: stencil7_apply with 9 lanes (the
+    species solve) of 256 x 1 x 1 and 96 x 24 x 1 (open boundaries) and
+    64 x 64 x 1 (periodic), float32; helmholtz7_apply_bc on those meshes
+    with their pressure BCs (every side zeroGradient; cyclic; zeroGradient
+    but a fixedValue outlet), float32; gj_inverse at the smallest and the
+    largest drain each dtype's timed steps launched it at (`lanes`:
+    {(n, L, dtype): paths})."""
+    torch = _worker_torch()
+    from deepflame_torch.mesh import cyclic, empty, fixed_value, zero_gradient
+    from deepflame_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(17)
+    zg, e = zero_gradient(), (empty(), empty())
+    L2 = 2.0 * math.pi * 1e-3
+    meshes = (
+        ("flame_1d", (256, 1, 1), (0.012 / 256,) * 3, True,
+         ((zg, zg), e, e), "every side zeroGradient, empty y, z"),
+        ("reacting_tgv_2d", (64, 64, 1), (L2 / 64,) * 3, False,
+         ((cyclic(), cyclic()), (cyclic(), cyclic()), e), "cyclic, empty z"),
+        ("jet_flame_2d", (96, 24, 1), (0.08 / 96, 0.02 / 24, 0.02 / 24), True,
+         ((zg, fixed_value(101325.0)), (zg, zg), e),
+         "zeroGradient, fixedValue outlet, empty z"))
+    rows = {"stencil7_apply": [], "helmholtz7_apply": [], "gj_inverse": []}
+    for path, shape, spacing, open_b, bcs, label in meshes:
+        row = _stencil_row(torch, K, g, (9,) + shape, open_b)
+        row["path"] = f"examples {path}"
+        rows["stencil7_apply"].append(row)
+        row = _helmholtz_bc_row(torch, K, _helmholtz_bc_sets(
+            torch, g, shape, spacing, bcs), label)
+        row["path"] = f"examples {path}"
+        rows["helmholtz7_apply"].append(row)
+    for dt_name in ("float32", "float64"):
+        mine = sorted((L, n, ps) for (n, L, d), ps in lanes.items()
+                      if d == dt_name)
+        for L, n, ps in (mine[:1] + mine[-1:] if len(mine) > 1 else mine):
+            row = _gj_row(torch, K, g, n, L, getattr(torch, dt_name))
+            row["path"] = "examples " + ", ".join(sorted(ps))
+            rows["gj_inverse"].append(row)
+    return rows
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -4695,7 +5222,8 @@ def main() -> int:
     ap.add_argument("--phases", metavar="LIST",
                     help="run only these of tci, sjet-pasr, sjet-edc, "
                          "light, hs, amr, fgm, spray, mist, fljet, hsfl, "
-                         "fgmfl, sprayfl, dist and dnnloop (comma-separated; "
+                         "fgmfl, sprayfl, dist, dnnloop and examples "
+                         "(comma-separated; "
                          "light needs tci and sjet-pasr; spray and mist run "
                          "their gates first) after the build, and end "
                          "without the result lines")
@@ -4783,6 +5311,9 @@ def main() -> int:
         if "dnnloop" in only:
             phase_dnnloop(torch, K)
             phase_done("dnnloop")
+        if "examples" in only:
+            phase_examples(torch, K)
+            phase_done("examples")
         print(f"chip_smoke: phases {only} only, {time.perf_counter() - t_start:.1f} s; by "
               f"phase {json.dumps(seconds)}")
         print(card)
@@ -4793,8 +5324,14 @@ def main() -> int:
     phase_done("build")
     figures = phase_kernels(torch, K, jet[0].p_ell, chamber_conn)
     phase_done("kernels")
-    phase_reference(torch, K)
-    phase_done("reference")
+    # the tci gates' four workers run beside the reference's four (both
+    # gates, nothing timed), checked before the main paths are timed
+    with tempfile.TemporaryDirectory() as tci_tmp, _pool(4) as tci_pool:
+        tci_runs = _tci_submit(tci_pool, tci_tmp)
+        phase_reference(torch, K)
+        phase_done("reference")
+        tci = phase_tci(torch, K, tci_runs)
+        phase_done("tci")
     counts, ms = {}, {}
     for path in ("stiff", "dnn"):
         counts[path], (_, _, ms[path], _) = phase_main(
@@ -4815,8 +5352,6 @@ def main() -> int:
           f"{ms['fl']:.2f} ms/step")
     phase_runtime(torch, K, N_RUNTIME)
     phase_done("runtime")
-    tci = phase_tci(torch, K)
-    phase_done("tci")
     counts["sjet-pasr"], ms["sjet-pasr"], solver, state = phase_sjet_pasr(
         torch, K)
     phase_done("sjet-pasr")
@@ -4825,26 +5360,45 @@ def main() -> int:
     phase_light(torch, K, state, solver, tci["PaSR"])
     del solver, state, tci
     phase_done("light")
-    counts["hs"], ms["hs"] = phase_hs(torch, K)
+    # the gates of hs, amr and fgm and the aachenBomb gate's card side in
+    # one window of workers (nothing timed), all done before hs is timed;
+    # each phase checks its own
+    with _pool(8) as pool:
+        gates = dict(hs=_hs_submit(pool), amr=_amr_submit(pool),
+                     fgm=_fgm_submit(pool),
+                     spray_card=pool.submit(_spray_gate_case, "cuda"))
+    phase_done("hs-amr-fgm-gates")
+    counts["hs"], ms["hs"] = phase_hs(torch, K, gates["hs"])
     phase_done("hs")
-    amr_counts, amr_ms, amr_gj = phase_amr(torch, K)
+    amr_counts, amr_ms, amr_gj = phase_amr(torch, K, gates["amr"])
     counts.update(amr_counts)
     ms.update(amr_ms)
     figures["gj_inverse"]["path_shapes"] += amr_gj
     phase_done("amr")
-    counts["fgm"], ms["fgm"] = phase_fgm(torch, K)
+    counts["fgm"], ms["fgm"] = phase_fgm(torch, K, gates["fgm"])
     phase_done("fgm")
-    spray_gates(torch)
-    phase_done("spray-gates")
+    # the examples' gates and shock runs beside the spray gates (both
+    # workers only, nothing timed), done before the spray path is timed
+    with _pool(EX_WORKERS) as ex_pool:
+        ex_jobs = _ex_submit(ex_pool)
+        spray_gates(torch, gates["spray_card"])
+        phase_done("spray-gates")
+        _ex_gates(torch, ex_jobs)
+        phase_done("examples-gates")
     counts["spray"], ms["spray"] = phase_spray(torch, K)
     phase_done("spray")
     counts["mist"], ms["mist"] = phase_mist(torch, K)
     phase_done("mist")
-    counts["fljet"], ms["fljet"] = phase_fljet(torch, K)
+    # the gates of fljet, hsfl and fgmfl in one window, likewise
+    with _pool(8) as pool:
+        gates = dict(fljet=_fljet_submit(pool), hsfl=_hsfl_submit(pool),
+                     fgmfl=_fgmfl_submit(pool))
+    phase_done("fl-gates")
+    counts["fljet"], ms["fljet"] = phase_fljet(torch, K, gates["fljet"])
     phase_done("fljet")
-    counts["hsfl"], ms["hsfl"] = phase_hsfl(torch, K)
+    counts["hsfl"], ms["hsfl"] = phase_hsfl(torch, K, gates["hsfl"])
     phase_done("hsfl")
-    counts["fgmfl"], ms["fgmfl"] = phase_fgmfl(torch, K)
+    counts["fgmfl"], ms["fgmfl"] = phase_fgmfl(torch, K, gates["fgmfl"])
     phase_done("fgmfl")
     counts["sprayfl"], ms["sprayfl"] = phase_sprayfl(torch, K, chamber)
     phase_done("sprayfl")
@@ -4863,6 +5417,14 @@ def main() -> int:
         "helmholtz7_apply"][0]
     figures["gj_inverse"]["path_shapes"] += dnn_rows["gj_inverse"]
     phase_done("dnnloop")
+    ex_counts, ex_rows, ex_ms = phase_examples(torch, K, gated=True)
+    counts.update(ex_counts)
+    ms.update(ex_ms)
+    figures["stencil7_apply"]["examples_shapes"] = ex_rows["stencil7_apply"]
+    figures["helmholtz7_apply"]["examples_shapes"] = ex_rows[
+        "helmholtz7_apply"]
+    figures["gj_inverse"]["path_shapes"] += ex_rows["gj_inverse"]
+    phase_done("examples")
 
     # each kernel's launches on its own path, and on every path
     own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,

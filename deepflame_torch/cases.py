@@ -23,11 +23,21 @@ functions); and the inlet-anchored 1D premixed flame
 (`flame_1d_diagnostics`), and the reference's Tu500K-Phi1 closed loop of a
 DF-ODENet against Laminar chemistry (`dnn_closed_loop_flame`,
 `closed_loop_compare`, `harvest_states`; examples/flame_dnn_closed_loop.
-py).
+py); and the examples' own families, each at its example's argparse
+defaults: the freely propagating 1D flame (`flame_1d`, `flame_1d_speed`;
+examples/flame_1d.py), the 2D reacting Taylor-Green vortex with its
+function objects (`reacting_tgv_2d`, `tgv_fields`), the 2D k-epsilon jet
+flame with EDC, PaSR or Laminar chemistry (`jet_flame_2d`), the 1D
+detonation (`detonation_1d`, `detonation_front`, `front_speed`), the inert
+shock through a water mist (`shock_watermist_1d`, `shock_front`) and one
+droplet's drag relaxation against its reference integration
+(`single_droplet_motion`, `droplet_relaxation`, `droplet_reference`).
 
 Each returns (solver, state) on `device` (default: the CUDA card); the Sod
-tube also its run plan; the AMR cases (amr, state); the 1D flames also
-their dt and an info dict.
+tube also its run plan; the AMR cases (amr, state); the 1D flames, the 2D
+jet, the 1D detonation and the shock also their dt and an info dict; the
+2D TGV its function objects and control; the droplet its cloud, state,
+gas, dt and step count.
 """
 from __future__ import annotations
 
@@ -74,7 +84,13 @@ __all__ = ["reacting_tgv_3d_les", "reacting_tgv_3d_les_dnn",
            "jet_flame_3d_les_plan", "detonation_2d_h2_fl",
            "sandia_d_fgm_2d_fl", "aachen_blockmesh_dict", "aachen_bomb_3d_fl",
            "flame_1d_anchored", "flame_1d_diagnostics",
-           "dnn_closed_loop_flame", "closed_loop_compare", "harvest_states"]
+           "dnn_closed_loop_flame", "closed_loop_compare", "harvest_states",
+           "flame_1d", "flame_1d_speed", "reacting_tgv_2d", "tgv_fields",
+           "JET2D_MODELS", "jet_flame_2d", "detonation_1d",
+           "detonation_front", "front_speed", "shock_watermist_1d",
+           "shock_front", "DROPLET_GAS", "DROPLET_RUNS",
+           "single_droplet_motion", "droplet_relaxation",
+           "droplet_reference"]
 
 
 def _fresh_mixture(mech):
@@ -83,6 +99,16 @@ def _fresh_mixture(mech):
     for name, y in (("H2", 0.0285), ("O2", 0.2264), ("N2", 0.7451)):
         Y[mech.species_index(name)] = y
     return Y
+
+
+def _dtype_opts(dtype, max_steps: int, grow=None) -> RosenbrockOptions:
+    """The examples' stiff options: rtol 1e-6 and atol 1e-12 in float64,
+    else 1e-4 and 1e-8."""
+    f64 = dtype == torch.float64
+    kw = {} if grow is None else dict(grow=grow)
+    return RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
+                             atol=1e-12 if f64 else 1e-8,
+                             max_steps=max_steps, **kw)
 
 
 def reacting_tgv_3d_les(mech_path: str, n: int = 48, dtype=torch.float32,
@@ -534,6 +560,44 @@ def detonation_2d_h2_amr(mech_path: str, nx: int = 2000, ny: int = 100,
         mech, solver.mesh, solver.dtype, igniters))
 
 
+def _h2_tube(mech, n: int, length: float, dtype, flux: str = "HLLC"):
+    """The 1D H2-air tube of the detonation examples: n cells over
+    `length`, a reflecting left wall (symmetry(negate=True) on U_x),
+    zeroGradient elsewhere; `flux`, RK2, vanLeer, split ODE chemistry above
+    500 K (the examples' options per dtype, 5000 steps). Returns its
+    HighSpeedSolver."""
+    mesh = StructuredMesh.box([length, length / n, length / n], [n, 1, 1],
+                              device=mech.device)
+    e = (empty(), empty())
+    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
+    b_un = ((symmetry(negate=True), zero_gradient()), e, e)
+    cfg = HighSpeedConfig(flux=flux, rk_order=2, limiter="vanLeer",
+                          chemistry="ode", ode_opts=_dtype_opts(dtype, 5000),
+                          T_threshold=500.0)
+    return HighSpeedSolver(mesh=mesh, thermo=make_thermo(mech, dtype),
+                           kinetics=make_kinetics(mech, dtype),
+                           bcs_rho=b_scalar, bcs_U=(b_un, b_scalar, b_scalar),
+                           bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+
+
+def _h2_tube_fields(mech, mesh, dtype, drv_len: float, T_drv: float = 2000.0,
+                    p_ratio: float = 90.0):
+    """p, T, Y of the tube: stoichiometric H2/O2/N2 0.02851/0.226/0.745
+    (normalised) at 1 atm and 300 K, a driver at T_drv and p_ratio atm for
+    x < drv_len."""
+    Yv = np.zeros(mech.n_species)
+    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
+        Yv[mech.species_index(name)] = y
+    Yv /= Yv.sum()
+    drv = mesh.cell_centers(dtype)[0] < drv_len
+    p0, T0 = 101325.0, 300.0
+    T = torch.where(drv, T_drv, T0).to(dtype)
+    p = torch.where(drv, p_ratio * p0, p0).to(dtype)
+    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    return p, T, Y.contiguous()
+
+
 # examples/detonation_1d_amr.py's patch: pc coarse cells, refined RATIO x
 # by one level (two levels: 2 x each), BUFFER coarse cells of buffer
 DET1D_PC, DET1D_RATIO, DET1D_BUFFER = 40, 4, 6
@@ -558,23 +622,9 @@ def detonation_1d_amr(mech_path: str, n: int = 300, levels: int = 1,
     from .mesh.amr import RefinementCriteria
     from .mesh.patch_amr import MovingPatchAMR, NestedPatchAMR
     mech = load_mechanism(mech_path, device=device)
-    th, kin = make_thermo(mech, dtype), make_kinetics(mech, dtype)
     length = 2.0
-    mesh = StructuredMesh.box([length, length / n, length / n], [n, 1, 1],
-                              device=mech.device)
-    e = (empty(), empty())
-    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
-    b_un = ((symmetry(negate=True), zero_gradient()), e, e)
-    f64 = dtype == torch.float64
-    cfg = HighSpeedConfig(
-        flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
-        ode_opts=RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
-                                   atol=1e-12 if f64 else 1e-8,
-                                   max_steps=5000),
-        T_threshold=500.0)
-    coarse = HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
-                             bcs_rho=b_scalar, bcs_U=(b_un, b_scalar, b_scalar),
-                             bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+    coarse = _h2_tube(mech, n, length, dtype)
+    mesh = coarse.mesh
     if levels >= 2:
         crit = RefinementCriteria(gradients=(("rho", 0.03),),
                                   fields=(("p", 3e5, 1e9),), n_buffer=2)
@@ -586,18 +636,9 @@ def detonation_1d_amr(mech_path: str, n: int = 300, levels: int = 1,
         amr = MovingPatchAMR.build(coarse, pc=DET1D_PC, ratio=DET1D_RATIO,
                                    buffer_c=DET1D_BUFFER, reflux=reflux)
         r = DET1D_RATIO
-    Yv = np.zeros(mech.n_species)
-    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
-        Yv[mech.species_index(name)] = y
-    Yv /= Yv.sum()
-    X, _, _ = mesh.cell_centers(dtype)
-    drv = X < max(0.002 * length, 1.5 * mesh.dx / r)
-    p0, T0 = 101325.0, 300.0
-    T = torch.where(drv, 2000.0, T0).to(dtype)
-    p = torch.where(drv, 90.0 * p0, p0).to(dtype)
-    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
-    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
-    return amr, amr.initial_state(p, T, Y.contiguous(), offset=0)
+    p, T, Y = _h2_tube_fields(mech, mesh, dtype,
+                              max(0.002 * length, 1.5 * mesh.dx / r))
+    return amr, amr.initial_state(p, T, Y, offset=0)
 
 
 def detonation_dt(solver, cfl: float = 0.3, a_bound: float = 3200.0) -> float:
@@ -791,25 +832,9 @@ def watermist_detonation_1d(mech_path: str, n: int = 700,
     (HighSpeedSpraySolver,
     HighSpeedSprayState) on `device`."""
     mech = load_mechanism(mech_path, device=device)
-    th = make_thermo(mech, dtype)
-    kin = make_kinetics(mech, dtype)
-    tr = make_transport(mech, dtype)
     Lx = 1.4
-    mesh = StructuredMesh.box([Lx, Lx / n, Lx / n], [n, 1, 1],
-                              device=mech.device)
-    e = (empty(), empty())
-    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
-    b_un = ((symmetry(negate=True), zero_gradient()), e, e)
-    f64 = dtype == torch.float64
-    cfg = HighSpeedConfig(
-        flux="HLLC", rk_order=2, limiter="vanLeer", chemistry="ode",
-        ode_opts=RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
-                                   atol=1e-12 if f64 else 1e-8,
-                                   max_steps=5000),
-        T_threshold=500.0)
-    gas = HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
-                          bcs_rho=b_scalar, bcs_U=(b_un, b_scalar, b_scalar),
-                          bcs_p=b_scalar, bcs_Y=b_scalar, config=cfg)
+    gas = _h2_tube(mech, n, Lx, dtype)
+    mesh = gas.mesh
     x0 = 3.0 / 7.0 * Lx
     xs = np.linspace(x0, Lx * 0.999, n_parcels)
     half = 0.5 * Lx / n
@@ -821,20 +846,11 @@ def watermist_detonation_1d(mech_path: str, n: int = 700,
     cloud = SprayCloud(mesh=mesh, liquid=water(), injector=inj,
                        max_parcels=n_parcels, evaporation="Spalding",
                        breakup="none", wall_interaction=())
-    solver = HighSpeedSpraySolver(gas_solver=gas, cloud=cloud, transport=tr,
+    solver = HighSpeedSpraySolver(gas_solver=gas, cloud=cloud,
+                                  transport=make_transport(mech, dtype),
                                   vapor_index=mech.species_index("H2O"))
-    Yv = np.zeros(mech.n_species)
-    for name, y in (("H2", 0.02851), ("O2", 0.226), ("N2", 0.745)):
-        Yv[mech.species_index(name)] = y
-    Yv /= Yv.sum()
-    X, _, _ = mesh.cell_centers(dtype)
-    drv = X < max(0.002 * Lx, 1.5 * mesh.dx)
-    p0, T0 = 101325.0, 300.0
-    T = torch.where(drv, 2000.0, T0).to(dtype)
-    p = torch.where(drv, 90.0 * p0, p0).to(dtype)
-    Y = torch.as_tensor(Yv, dtype=dtype, device=mesh.device)
-    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
-    return solver, solver.initial_state(p, T, Y.contiguous())
+    return solver, solver.initial_state(*_h2_tube_fields(
+        mech, mesh, dtype, max(0.002 * Lx, 1.5 * mesh.dx)))
 
 
 # ------------------------------------------------- face-list forms
@@ -1073,10 +1089,7 @@ def _anchored_flame(mech_path, n, length, u_in, T_u, phi, fuel, dtype,
     brho = ((fixed_value(rho_u), zero_gradient()), e, e)
     bY = [((fixed_value(float(Yu[k])), zero_gradient()), e, e)
           for k in range(ns)]
-    f64 = dtype == torch.float64
-    ode_opts = RosenbrockOptions(rtol=1e-6 if f64 else 1e-4,
-                                 atol=1e-12 if f64 else 1e-8,
-                                 max_steps=20000, grow=10.0)
+    ode_opts = _dtype_opts(dtype, 20000, grow=10.0)
     solvers = {name: LowMachSolver(
         mesh=mesh, thermo=th, transport=tr,
         combustion=make(th, kin, ode_opts), bcs_U=(bU, bU0, bU0), bcs_p=bp,
@@ -1242,3 +1255,403 @@ def harvest_states(solver, state, dt: float, steps: int):
                            Y=np.zeros((0, state.Y.shape[0])))
     return state, {k: np.concatenate([h[i] for h in taken])
                    for i, k in enumerate(("T", "p", "Y"))}
+
+
+# ------------------------------------------ the examples' own families
+# (examples/flame_1d.py, reacting_tgv_2d.py, jet_flame_2d.py,
+# detonation_1d.py, shock_watermist_1d.py, single_droplet_motion.py); each
+# builder's defaults are its example's argparse defaults
+
+def flame_1d(mech_path: str, n: int = 256, length: float = 0.012,
+             T_u: float = 300.0, steps: int = 400, dt=None,
+             dtype=torch.float64, device=None):
+    """The freely propagating 1D premixed flame of examples/flame_1d.py
+    (:44-91): n cells over `length`, zeroGradient at both ends for every
+    field (the pressure included: no Dirichlet face), empty y and z; the
+    phi ~ 1 H2/air mixture at T_u and 1 atm with a 2400 K burnt pocket on
+    the left, T_u + (2400 - T_u) (1 - tanh((x - L/4) / 8 dx)) / 2, at rest;
+    Laminar chemistry (rtol 1e-6 and atol 1e-12 in float64, else 1e-4 and
+    1e-8; 20000 steps, growth 10). Returns (solver, state, dt, info): dt
+    the given one or min(2e-7, 0.35 dx / 1200); info holds the cell centres
+    x, dx, `steps` and the example's read interval every = max(steps //
+    40, 1), which flame_1d_speed's series take."""
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    mesh = StructuredMesh.box([length, length / n, length / n], [n, 1, 1],
+                              device=mech.device)
+    e = (empty(), empty())
+    b = ((zero_gradient(), zero_gradient()), e, e)
+    comb = Laminar(th, kin, ode_opts=_dtype_opts(dtype, 20000, grow=10.0))
+    solver = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr, combustion=comb,
+        bcs_U=(b, b, b), bcs_p=b, bcs_h=b, bcs_Y=b, bcs_rho=b,
+        config=LowMachConfig(chemistry=True,
+                             inert_index=mech.species_index("N2")))
+    X = mesh.cell_centers(dtype)[0]
+    prof = 0.5 * (1.0 - torch.tanh((X - 0.25 * length) / (8.0 * mesh.dx)))
+    T = (T_u + (2400.0 - T_u) * prof).to(dtype)
+    p = torch.full(mesh.shape, 101325.0, dtype=dtype, device=mesh.device)
+    Y = torch.as_tensor(_fresh_mixture(mech), dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    dt = dt if dt is not None else min(2e-7, 0.35 * mesh.dx / 1200.0)
+    info = dict(x=X.reshape(-1).cpu().numpy(), dx=mesh.dx, length=length,
+                steps=steps, every=max(steps // 40, 1))
+    return solver, solver.initial_state(p, T, Y.contiguous()), dt, info
+
+
+def flame_1d_speed(times, fronts, x, T, U, dx=None) -> dict:
+    """examples/flame_1d.py's readings (:100-114) of a run's front series
+    (times, front positions) and its last state's T and U_x along the
+    line: the displacement speed from a linear fit over the second half of
+    the series, the unburnt velocity u_ahead at the cell max(3, int(1 mm /
+    dx // 2)) cells past the last front (at most the last but one), the
+    flame speed S_L = displacement - u_ahead, and the thermal thickness.
+    dx: the cell size (default x[1] - x[0])."""
+    x = np.asarray(x, dtype=np.float64).reshape(-1)
+    T = np.asarray(T.cpu() if isinstance(T, torch.Tensor) else T).reshape(-1)
+    U = np.asarray(U.cpu() if isinstance(U, torch.Tensor) else U).reshape(-1)
+    dx = float(x[1] - x[0]) if dx is None else dx
+    sel = slice(len(times) // 2, None)
+    disp = float(np.polyfit(np.asarray(times)[sel],
+                            np.asarray(fronts)[sel], 1)[0])
+    i_f = int(np.argmin(np.abs(x - fronts[-1])))
+    i_ahead = min(i_f + max(3, int(1e-3 / dx // 2)), len(x) - 2)
+    u_ahead = float(U[i_ahead])
+    return dict(displacement=disp, u_ahead=u_ahead, i_ahead=i_ahead,
+                S_L=disp - u_ahead, thickness=flame_thickness(x, T))
+
+
+def reacting_tgv_2d(mech_path: str, n: int = 64, t_end: float = 5e-4,
+                    dt: float = 2.5e-7, dtype=torch.float64,
+                    out_dir: str = "postProcessing_tgv", device=None):
+    """The 2D reacting Taylor-Green vortex of examples/reacting_tgv_2d.py
+    (:47-92): a periodic square of 2 pi mm, n x n x 1 cells, the phi ~ 1
+    H2/air mixture at 300 K and 1 atm with an 1800 K disc of radius L/6 at
+    the centre, the TGV velocity of amplitude 5 m/s; Laminar chemistry (the
+    examples' options per dtype, 20000 steps, growth 10). Its function
+    objects write under out_dir: FieldMinMax of T and p
+    (out_dir/fieldMinMax) and a LineSample of T along x through y = L/2
+    (out_dir/sample). Returns (solver, state, function objects, control):
+    run it with `run_case(solver, state, control, function_objects=...,
+    fields_fn=tgv_fields)`; control ends at t_end with step dt and writes
+    every 1e-4 s, as the example's (dataclasses.replace sets another
+    write_interval)."""
+    from .runtime import ControlDict, FieldMinMax, FunctionObjectSet, LineSample
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    L = 2.0 * math.pi * 1e-3
+    mesh = StructuredMesh.box([L, L, L / n], [n, n, 1], device=mech.device)
+    b = ((cyclic(), cyclic()), (cyclic(), cyclic()), (empty(), empty()))
+    comb = Laminar(th, kin, ode_opts=_dtype_opts(dtype, 20000, grow=10.0))
+    solver = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr, combustion=comb,
+        bcs_U=(b, b, b), bcs_p=b, bcs_h=b, bcs_Y=b, bcs_rho=b,
+        config=LowMachConfig(chemistry=True,
+                             inert_index=mech.species_index("N2")))
+    X, Yg, _ = mesh.cell_centers(dtype)
+    k = 2.0 * math.pi / L
+    U = torch.stack([5.0 * torch.sin(k * X) * torch.cos(k * Yg),
+                     -5.0 * torch.cos(k * X) * torch.sin(k * Yg),
+                     torch.zeros_like(X)])
+    r2 = (X - L / 2) ** 2 + (Yg - L / 2) ** 2
+    T = torch.where(r2 < (L / 6) ** 2, 1800.0, 300.0).to(dtype)
+    p = torch.full(mesh.shape, 101325.0, dtype=dtype, device=mesh.device)
+    Y = torch.as_tensor(_fresh_mixture(mech), dtype=dtype, device=mesh.device)
+    Y = Y[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    fos = FunctionObjectSet([
+        FieldMinMax(mesh, ["T", "p"], out_dir=f"{out_dir}/fieldMinMax"),
+        LineSample(mesh, 0, (0.0, L / 2, 0.0), ["T"],
+                   out_dir=f"{out_dir}/sample")])
+    control = ControlDict(end_time=t_end, delta_t=dt, write_interval=1e-4)
+    return (solver, solver.initial_state(p, T, Y.contiguous(), U), fos,
+            control)
+
+
+def tgv_fields(state) -> dict:
+    """The fields reacting_tgv_2d's function objects read: T and p."""
+    return {"T": state.T, "p": state.p}
+
+
+JET2D_MODELS = ("EDC", "PaSR", "laminar")
+
+
+def jet_flame_2d(mech_path: str, model: str = "EDC", n: int = 24,
+                 steps: int = 300, dt: float = 2e-6, dtype=torch.float64,
+                 device=None):
+    """The 2D RAS jet flame of examples/jet_flame_2d.py (:45-109; the
+    example runs float64): 4n x n x 1 cells over 80 x 20 mm centred on y =
+    0; at the x-low face a 30 % H2 / 70 % N2 (by mass) jet of 40 m/s and
+    400 K for |y| < 2 mm into a 1 m/s, 1400 K air coflow, one fixedValue
+    profile per species, U_x, h and rho (h and rho from the thermo at the
+    inlet), the transverse velocity fixed at 0 there; p fixed at the
+    outlet, zeroGradient elsewhere, empty z. k-epsilon RAS (k0 = 0.01
+    u_jet^2, eps0 = 0.1 u_jet^3 / r_jet), upwind convection, N2 inert; the
+    model (`model` one of JET2D_MODELS, as --model) on rtol 1e-6, atol
+    1e-12, 20000 steps, growth 10. Initial state: hot coflow air at rest.
+    Returns (solver, state, dt, info): info holds `steps` and the index of
+    H2."""
+    from .combustion import EDC, PaSR
+    from .turbulence import KEpsilon
+    makers = dict(zip(JET2D_MODELS, (EDC, PaSR, Laminar)))
+    if model not in makers:
+        raise ValueError(f"model {model!r}: one of {JET2D_MODELS}")
+    mech = load_mechanism(mech_path, device=device)
+    dev = mech.device
+    th = make_thermo(mech, dtype)
+    tr = make_transport(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    ns = mech.n_species
+    iH2, iO2, iN2 = (mech.species_index(s) for s in ("H2", "O2", "N2"))
+    nx, ny = 4 * n, n
+    Lx, Ly = 0.08, 0.02
+    mesh = StructuredMesh.box([Lx, Ly, Ly / ny], [nx, ny, 1],
+                              origin=(0.0, -Ly / 2, 0.0), device=dev)
+    jet_r, u_jet, u_co = 0.002, 40.0, 1.0
+    y = mesh.cell_centers()[1][0, :, 0].cpu().numpy()
+    in_jet = np.abs(y) < jet_r
+    Y_in = np.zeros((ns, ny))
+    Y_in[iH2] = np.where(in_jet, 0.30, 0.0)
+    Y_in[iN2] = np.where(in_jet, 0.70, 0.767)
+    Y_in[iO2] = np.where(in_jet, 0.0, 0.233)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    zg = zero_gradient()
+    zgp, e = (zg, zg), (empty(), empty())
+    inlet = lambda v: ((fixed_value(v), zg), zgp, e)
+    bcs_Y = [inlet(f(Y_in[i][None, :, None])) for i in range(ns)]
+    T_in = f(np.where(in_jet, 400.0, 1400.0)[None, :, None])
+    Yt_in = f(Y_in.T[None, :, None, :])
+    comb = makers[model](th, kin, ode_opts=RosenbrockOptions(
+        rtol=1e-6, atol=1e-12, max_steps=20000, grow=10.0))
+    solver = LowMachSolver(
+        mesh=mesh, thermo=th, transport=tr, combustion=comb,
+        bcs_U=(inlet(f(np.where(in_jet, u_jet, u_co)[None, :, None])),
+               inlet(0.0), inlet(0.0)),
+        bcs_p=((zg, fixed_value(101325.0)), zgp, e),
+        bcs_h=inlet(th.h_mass(T_in, Yt_in)), bcs_Y=bcs_Y,
+        bcs_rho=inlet(th.rho(f(101325.0), T_in, Yt_in)),
+        config=LowMachConfig(chemistry=True, div_scheme="upwind",
+                             inert_index=iN2),
+        turbulence=KEpsilon())
+    Y0 = np.zeros((ns,) + mesh.shape)
+    Y0[iN2], Y0[iO2] = 0.767, 0.233
+    state = solver.initial_state(np.full(mesh.shape, 101325.0),
+                                 np.full(mesh.shape, 1400.0), Y0,
+                                 k0=u_jet ** 2 * 0.01,
+                                 eps0=u_jet ** 3 * 0.1 / jet_r)
+    return solver, state, dt, dict(steps=steps, h2_index=iH2)
+
+
+def detonation_1d(mech_path: str, n: int = 625, length: float = 5.0,
+                  t_end: float = 2.2e-3, dtype=torch.float64,
+                  flux: str = "HLLC", cfl: float = 0.3,
+                  driver_frac: float = 0.002, driver_pratio: float = 90.0,
+                  driver_T: float = 2000.0, device=None):
+    """The 1D H2-air detonation of examples/detonation_1d.py (:56-100; the
+    reference's oneD_detonationH2): n cells over `length`, stoichiometric
+    H2/O2/N2 0.02851/0.226/0.745 (normalised) at 1 atm and 300 K, a driver
+    of driver_pratio atm and driver_T over x < max(driver_frac L, 1.5 dx),
+    a reflecting left wall (symmetry(negate=True) on U_x), zeroGradient
+    elsewhere; `flux`, RK2, vanLeer, split ODE chemistry above 500 K
+    (the examples' options per dtype, 5000 steps). Returns (solver, state,
+    dt, info): dt = cfl dx / 3500 m/s; info holds the cell centres x, the
+    example's n_steps = int(t_end / dt), its read interval
+    every = max(n_steps // 60, 1) and the index of H2."""
+    mech = load_mechanism(mech_path, device=device)
+    solver = _h2_tube(mech, n, length, dtype, flux)
+    mesh = solver.mesh
+    dt = cfl * mesh.dx / 3500.0
+    n_steps = int(t_end / dt)
+    info = dict(x=mesh.cell_centers(dtype)[0].reshape(-1).cpu().numpy(),
+                n_steps=n_steps, every=max(n_steps // 60, 1),
+                h2_index=mech.species_index("H2"))
+    return solver, solver.initial_state(*_h2_tube_fields(
+        mech, mesh, dtype, max(driver_frac * length, 1.5 * mesh.dx),
+        driver_T, driver_pratio)), dt, info
+
+
+def detonation_front(solver, state, x, h2_index: int) -> dict:
+    """examples/detonation_1d.py's reading of a state (:109-118): the front
+    at the largest pressure (x and cell), p_max, T_max and the largest Y_H2
+    more than 20 mm behind the front (NaN with 2 cells or fewer there)."""
+    _, _, p, T, Y = solver.primitives(state)
+    p = p.reshape(-1).cpu().numpy()
+    ix = int(np.argmax(p))
+    behind = np.asarray(x) < (x[ix] - 0.02)
+    y_h2 = Y[h2_index].reshape(-1).cpu().numpy()
+    return dict(x_front=float(x[ix]), i_front=ix, p_max=float(p.max()),
+                T_max=float(T.max()),
+                Y_H2_behind=(float(y_h2[behind].max()) if behind.sum() > 2
+                             else float("nan")))
+
+
+def front_speed(times, fronts, lo: float, hi: float):
+    """The examples' speed fit: the slope of a linear fit of the front
+    positions in (lo, hi) against time, or None with fewer than 4 there
+    (detonation_1d.py: (0.3 L, 0.95 L); shock_watermist_1d.py: (0.1,
+    1.0) m)."""
+    t, x = np.asarray(times), np.asarray(fronts)
+    sel = (x > lo) & (x < hi)
+    return float(np.polyfit(t[sel], x[sel], 1)[0]) if sel.sum() >= 4 else None
+
+
+def shock_watermist_1d(mech_path: str, n: int = 240, t_end: float = 2.0e-3,
+                       dry: bool = False, dtype=torch.float32,
+                       cfl: float = 0.3, device=None):
+    """The inert shock through a water mist of examples/
+    shock_watermist_1d.py (:57-117; the reference's oneD_shockWaterMist):
+    x in [-0.1, 1.1] m on n cells (the mesh frame shifted by +0.1 m); air
+    (O2/N2 0.23149482/0.76204518, normalised) at 66 kPa and 275 K behind a
+    driver of 109312.5 Pa, 318 K and 125.076 m/s at x < 0; zeroGradient
+    ends; HLLC, RK2, vanLeer, no chemistry. With the fog (dry=False): 220
+    parcels of 2.4 um water, one every 5 mm from x = 2.5 mm, 2.2e5 droplets
+    each at 275 K, released in the first step; Spalding evaporation, no
+    breakup, the vapour into H2O. Returns (solver, state, dt, info): the
+    HighSpeedSpraySolver, or with dry=True the bare HighSpeedSolver; dt =
+    cfl dx / 900 m/s; info holds the physical cell centres x, the
+    example's n_steps = int(t_end / dt), its read interval every =
+    max(n_steps // 40, 1), the gas solver and `prims`, the primitives of a
+    state of either solver."""
+    mech = load_mechanism(mech_path, device=device)
+    th = make_thermo(mech, dtype)
+    kin = make_kinetics(mech, dtype)
+    x_lo, x_hi = -0.1, 1.1
+    Lx = x_hi - x_lo
+    w = Lx / n
+    mesh = StructuredMesh.box([Lx, w, w], [n, 1, 1], device=mech.device)
+    e = (empty(), empty())
+    b_scalar = ((zero_gradient(), zero_gradient()), e, e)
+    gas = HighSpeedSolver(mesh=mesh, thermo=th, kinetics=kin,
+                          bcs_rho=b_scalar, bcs_U=(b_scalar,) * 3,
+                          bcs_p=b_scalar, bcs_Y=b_scalar,
+                          config=HighSpeedConfig(flux="HLLC", rk_order=2,
+                                                 limiter="vanLeer",
+                                                 chemistry="none"))
+    Yv = np.zeros(mech.n_species)
+    Yv[mech.species_index("O2")] = 0.23149482
+    Yv[mech.species_index("N2")] = 0.76204518
+    Yv /= Yv.sum()
+    X = mesh.cell_centers(dtype)[0]
+    Xphys = X - 0.1
+    drv = (Xphys < 0.0).cpu().numpy()
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=mesh.device)
+    T = t(np.where(drv, 318.0, 275.0))
+    p = t(np.where(drv, 109312.5, 66000.0))
+    u0 = t(np.where(drv, 125.076, 0.0))
+    U = torch.stack([u0, torch.zeros_like(u0), torch.zeros_like(u0)])
+    Y = t(Yv)[:, None, None, None].expand((mech.n_species,) + mesh.shape)
+    dt = cfl * mesh.dx / 900.0
+    n_steps = int(t_end / dt)
+    info = dict(x=Xphys.reshape(-1).cpu().numpy(), n_steps=n_steps,
+                every=max(n_steps // 40, 1), gas_solver=gas)
+    if dry:
+        info["prims"] = gas.primitives
+        return gas, gas.initial_state(p, T, Y.contiguous(), U=U), dt, info
+    n_parcels = 220
+    xs = 0.1 + 0.0025 + 0.005 * np.arange(n_parcels)
+    half = 0.5 * w
+    inj = ManualInjector(positions=np.stack(
+        [xs, np.full_like(xs, half), np.full_like(xs, half)], axis=1),
+        soi=0.0, d0=2.4e-6, n_particle=2.2e5, T_inject=275.0,
+        rho_liquid=997.0)
+    cloud = SprayCloud(mesh=mesh, liquid=water(), injector=inj,
+                       max_parcels=n_parcels, evaporation="Spalding",
+                       breakup="none", wall_interaction=())
+    solver = HighSpeedSpraySolver(gas_solver=gas, cloud=cloud,
+                                  transport=make_transport(mech, dtype),
+                                  vapor_index=mech.species_index("H2O"))
+    info["prims"] = lambda s: gas.primitives(s.gas)
+    return solver, solver.initial_state(p, T, Y.contiguous(), U=U), dt, info
+
+
+def shock_front(p, x) -> float:
+    """examples/shock_watermist_1d.py's shock position: x at the steepest
+    pressure drop, argmin of diff(p) along the line."""
+    p = p.reshape(-1).cpu().numpy() if isinstance(p, torch.Tensor) \
+        else np.asarray(p).reshape(-1)
+    return float(np.asarray(x).reshape(-1)[int(np.argmin(np.diff(p)))])
+
+
+# examples/single_droplet_motion.py's gas and droplet (:28-34) and its
+# three runs, (diameter [um], t_end [s])
+DROPLET_GAS = dict(U_GAS=67.056, U_DROP=30.48, RHO_L=1000.0, T_GAS=293.0,
+                   P_GAS=101325.0, MU_G=1.8e-5)
+DROPLET_RUNS = ((25, 2e-3), (100, 2e-2), (1000, 0.1))
+
+
+def _rho_gas() -> float:
+    return DROPLET_GAS["P_GAS"] / (287.0 * DROPLET_GAS["T_GAS"])
+
+
+def single_droplet_motion(d0: float, t_end: float, dtype=torch.float64,
+                          device=None):
+    """One droplet's drag relaxation as examples/single_droplet_motion.py
+    runs it (:80-106; the reference's oneD_singleDropletMotion): a frozen
+    uniform air stream (DROPLET_GAS: 67.056 m/s, 293 K, 1 atm, rho = p /
+    (287 T), mu 1.8e-5) on a 100-cell duct of 10 m, one parcel of diameter
+    d0 and density 1000 kg/m^3 at 30.48 m/s from x = 0.05 m; sphereDrag,
+    no evaporation, breakup or walls. Returns (cloud, state, gas fields,
+    dt, n_steps): dt = min(tau / 20, t_end / 200) with tau = rho_l d0^2 /
+    (18 mu), n_steps = round(t_end / dt)."""
+    from .device import resolve_device
+    g = DROPLET_GAS
+    dev = resolve_device(device)
+    mesh = StructuredMesh.box([10.0, 0.01, 0.01], [100, 1, 1], device=dev)
+    full = lambda v: torch.full(mesh.shape, v, dtype=dtype, device=dev)
+    gas = dict(rho=full(_rho_gas()),
+               U=torch.stack([full(g["U_GAS"]), full(0.0), full(0.0)]),
+               T=full(g["T_GAS"]), p=full(g["P_GAS"]), mu=full(g["MU_G"]))
+    inj = ManualInjector(positions=np.array([[0.05, 0.005, 0.005]]), soi=0.0,
+                         d0=d0, n_particle=1.0, T_inject=g["T_GAS"],
+                         rho_liquid=g["RHO_L"], U0=(g["U_DROP"], 0.0, 0.0))
+    cloud = SprayCloud(mesh=mesh, liquid=water(), injector=inj,
+                       max_parcels=1, evaporation="none", drag="sphereDrag",
+                       breakup="none", wall_interaction=())
+    tau = g["RHO_L"] * d0 ** 2 / (18.0 * g["MU_G"])
+    dt = min(tau / 20.0, t_end / 200.0)
+    return cloud, cloud.init(dtype=dtype), gas, dt, int(round(t_end / dt))
+
+
+def droplet_relaxation(d0: float, t_end: float, dtype=torch.float64,
+                       device=None, steps=None):
+    """u_p(t) of single_droplet_motion: the parcel's x velocity after each
+    of the run's steps (the step k at time (k + 1) dt), `steps` of them
+    (default: all n_steps, to t_end), as one tensor on the device (the
+    example's lax.scan is a loop of cloud.evolve here). Returns (u_p,
+    the last cloud state)."""
+    cloud, c, gas, dt, n_steps = single_droplet_motion(d0, t_end, dtype,
+                                                       device)
+    t = torch.zeros((), dtype=dtype, device=c.d.device)
+    u = []
+    for _ in range(n_steps if steps is None else steps):
+        c, _ = cloud.evolve(c, gas, dt, t)
+        t = t + dt
+        u.append(c.vel[0, 0])
+    return torch.stack(u), c
+
+
+def droplet_reference(d0: float, t_end: float, n: int = 400):
+    """The reference integration of examples/single_droplet_motion.py
+    (:37-52): du_p/dt = (3/4) (rho_g / (rho_l d0)) C_D |u_g - u_p| (u_g -
+    u_p) with sphereDrag's C_D = 24/Re (1 + Re^(2/3)/6) below Re = 1000,
+    else 0.424, by scipy's RK45 at rtol 1e-10, atol 1e-12. Returns (t,
+    u_p) as numpy at n times over [0, t_end]."""
+    from scipy.integrate import solve_ivp
+    g = DROPLET_GAS
+    rho_g = _rho_gas()
+
+    def rhs(t, y):
+        rel = g["U_GAS"] - y[0]
+        Re = rho_g * abs(rel) * d0 / g["MU_G"]
+        Cd = np.where(Re < 1000.0,
+                      24.0 / max(Re, 1e-12) * (1.0 + Re ** (2.0 / 3.0) / 6.0),
+                      0.424)
+        return [0.75 * rho_g / (g["RHO_L"] * d0) * Cd * abs(rel) * rel]
+
+    ts = np.linspace(0.0, t_end, n)
+    sol = solve_ivp(rhs, (0.0, t_end), [g["U_DROP"]], t_eval=ts, rtol=1e-10,
+                    atol=1e-12)
+    return ts, sol.y[0]

@@ -366,3 +366,160 @@ def test_port_has_every_public_function_and_method_of_jax():
         checked += len(jf)
     assert missing == NO_COUNTERPART, sorted(missing ^ NO_COUNTERPART)
     assert checked >= 300
+
+
+# Every script of examples/ with the port function that runs it, or
+# ("absent", a file it needs that the repository lacks, named in ROADMAP
+# section A's "Not queued" list). The H2_Li examples run on the test
+# mechanism, as every port path does; aachen_bomb_3d sprays water where the
+# example sprays n-heptane (C7_oneStep is absent).
+EXAMPLES = {
+    "aachen_bomb_2d.py": ("absent", "C7_oneStep.yaml"),
+    "aachen_bomb_3d.py": ("port", "cases.aachen_bomb_3d"),
+    "detonation_1d.py": ("port", "cases.detonation_1d"),
+    "detonation_1d_amr.py": ("port", "cases.detonation_1d_amr"),
+    "detonation_1d_c7mist.py": ("absent", "C7_oneStep.yaml"),
+    "detonation_1d_watermist.py": ("port", "cases.watermist_detonation_1d"),
+    "detonation_2d.py": ("port", "cases.detonation_2d_h2_amr"),
+    "detonation_2d_c2h4_mist.py": ("absent", "C2H4_r10.yaml"),
+    "flame_1d.py": ("port", "cases.flame_1d"),
+    "flame_1d_anchored.py": ("port", "cases.flame_1d_anchored"),
+    "flame_dnn_closed_loop.py": ("port", "cases.dnn_closed_loop_flame"),
+    "hit_flame_2d.py": ("absent", "drm19.yaml"),
+    "jet_flame_2d.py": ("port", "cases.jet_flame_2d"),
+    "reacting_tgv_2d.py": ("port", "cases.reacting_tgv_2d"),
+    "reacting_tgv_2d_reference_ics.py": ("absent", "ES80_H2-7-16.yaml"),
+    "reacting_tgv_3d_les.py": ("port", "cases.reacting_tgv_3d_les"),
+    "reactive_shock_tube_1d.py": ("absent", "H2_AR.yaml"),
+    "reactor_0d.py": ("port", "chemistry.reactor.ignite"),
+    "sandia_d_fgm_2d.py": ("port", "cases.sandia_d_fgm_2d"),
+    "sandia_d_wedge_fgm.py": ("absent", "blockMeshDict"),
+    "shock_watermist_1d.py": ("port", "cases.shock_watermist_1d"),
+    "single_droplet_motion.py": ("port", "cases.droplet_relaxation"),
+    "supercritical_tgv_2d.py": ("absent", "2s_CH4_BFER_N2.yaml"),
+    "sydney_spray_burner.py": ("absent", "ethanol66.yaml"),
+    "temporal_jet_2d.py": ("absent", "drm19.yaml"),
+    "train_dfodenet.py": ("port", "chemistry.dnn_train.train_dfodenet"),
+    "triple_flame_2d.py": ("absent", "ES80_H2-7-16.yaml"),
+}
+
+
+def _repo_files() -> set:
+    """Base names of every file in the repository's tree (less .git and
+    what builds and runs write)."""
+    skip = {".git", "build", "chiprun_out", "_proof", "__pycache__"}
+    names = set()
+    for d, dirs, files in os.walk(ROOT):
+        dirs[:] = [x for x in dirs if x not in skip]
+        names.update(files)
+    return names
+
+
+def test_every_example_is_run_by_the_port_or_needs_an_absent_file():
+    """EXAMPLES maps every examples/*.py: to a port function that exists
+    and is callable, or to a file that the example's source names, that no
+    file of the repository is, and that ROADMAP.md names among the files
+    the repository lacks."""
+    import importlib
+    scripts = {f for f in os.listdir(os.path.join(ROOT, "examples"))
+               if f.endswith(".py")}
+    assert scripts == set(EXAMPLES), sorted(scripts ^ set(EXAMPLES))
+    roadmap = open(os.path.join(ROOT, "ROADMAP.md")).read()
+    present = _repo_files()
+    for script, (kind, what) in EXAMPLES.items():
+        if kind == "port":
+            mod, name = what.rsplit(".", 1)
+            fn = getattr(importlib.import_module("deepflame_torch." + mod),
+                         name)
+            assert callable(fn), script
+        else:
+            assert kind == "absent", script
+            src = open(os.path.join(ROOT, "examples", script)).read()
+            assert what in src, (script, what)
+            assert what not in present, (script, what)
+            assert what in roadmap, (script, what)
+    assert sum(k == "port" for k, _ in EXAMPLES.values()) >= 16
+
+
+def _argparse_defaults(script: str) -> dict:
+    """{dest: default} of every ap.add_argument(...) in an example, read
+    with ast (no import): the default= literal, False for store_true, else
+    None; and "forced_dtype" where main() calls configure(..., "<dtype>")
+    with a literal."""
+    import ast
+    tree = ast.parse(open(os.path.join(ROOT, "examples", script)).read())
+    out = {}
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        if getattr(node.func, "attr", None) == "add_argument":
+            dest = node.args[0].value.lstrip("-").replace("-", "_")
+            kw = {k.arg: k.value for k in node.keywords}
+            if "default" in kw:
+                out[dest] = ast.literal_eval(kw["default"])
+            elif "action" in kw:
+                out[dest] = ast.literal_eval(kw["action"]) == "store_false"
+            else:
+                out[dest] = None
+        elif getattr(node.func, "id", None) == "configure" \
+                and isinstance(node.args[1], ast.Constant):
+            out["forced_dtype"] = node.args[1].value
+    return out
+
+
+# per example: its builder and {argparse dest: builder parameter}; the
+# --platform option is the builder's `device` (None: the card)
+DEFAULTS = {
+    "flame_1d.py": ("flame_1d", {"cells": "n", "length": "length",
+                                 "T_u": "T_u", "steps": "steps", "dt": "dt",
+                                 "dtype": "dtype"}),
+    "reacting_tgv_2d.py": ("reacting_tgv_2d", {
+        "cells": "n", "t_end": "t_end", "dt": "dt", "dtype": "dtype",
+        "out": "out_dir"}),
+    "jet_flame_2d.py": ("jet_flame_2d", {"model": "model", "cells": "n",
+                                         "steps": "steps", "dt": "dt",
+                                         "forced_dtype": "dtype"}),
+    "detonation_1d.py": ("detonation_1d", {
+        "cells": "n", "length": "length", "t_end": "t_end",
+        "dtype": "dtype", "flux": "flux", "cfl": "cfl",
+        "driver_frac": "driver_frac", "driver_pratio": "driver_pratio",
+        "driver_T": "driver_T"}),
+    "shock_watermist_1d.py": ("shock_watermist_1d", {
+        "cells": "n", "t_end": "t_end", "dry": "dry", "dtype": "dtype",
+        "cfl": "cfl"}),
+    "single_droplet_motion.py": ("droplet_relaxation", {"dtype": "dtype"}),
+}
+
+
+@pytest.mark.parametrize("script", sorted(DEFAULTS))
+def test_example_builders_take_their_examples_defaults(script):
+    """Each new builder's defaults are its example's argparse defaults
+    (read from the script's source; "f64"/"f32" as torch's float64 and
+    float32), every option of the example has its parameter, and the
+    example's --platform is the builder's device=None (the card). The
+    droplet's gas, droplet and runs are the script's constants."""
+    import ast
+    import inspect
+    from deepflame_torch import cases
+    name, params = DEFAULTS[script]
+    ex = _argparse_defaults(script)
+    sig = inspect.signature(getattr(cases, name)).parameters
+    assert sig["device"].default is None and "platform" in ex
+    assert set(ex) - {"platform"} == set(params), script
+    as_torch = {"f64": torch.float64, "f32": torch.float32}
+    for dest, param in params.items():
+        want = ex[dest]
+        want = as_torch.get(want, want) if "dtype" in dest else want
+        assert sig[param].default == want, (script, dest, param)
+    if script == "single_droplet_motion.py":
+        tree = ast.parse(open(os.path.join(ROOT, "examples", script)).read())
+        consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+                  if isinstance(n, ast.Assign) for t in n.targets
+                  if isinstance(t, ast.Name) and t.id in cases.DROPLET_GAS
+                  and isinstance(n.value, ast.Constant)}
+        assert consts == cases.DROPLET_GAS
+        loops = [ast.literal_eval(n.iter) for n in ast.walk(tree)
+                 if isinstance(n, ast.For) and isinstance(n.iter, ast.Tuple)]
+        assert loops == [cases.DROPLET_RUNS]
+        assert inspect.signature(cases.single_droplet_motion).parameters[
+            "dtype"].default == torch.float64
