@@ -12,7 +12,11 @@ and its own iteration count.
 
 The loop is Python and reads "any lane active" back to the host every
 `CHECK_EVERY` trips; trips after a lane stopped are exact no-ops for it, so
-results and counts match the JAX loop. Inside `parallel.context.compensated()`
+results and counts match the JAX loop. Each solve is a tracer span
+(`krylov.cg`, `krylov.bicgstab`; `runtime.timers`) counting its trips
+(`krylov.trips`), trips x lanes (`krylov.lane_trips`), the lanes' summed
+iterations (`krylov.lane_iters`, a device tensor) and its host reads
+(`krylov.host_reads`). Inside `parallel.context.compensated()`
 the per-lane reductions are compensated sums (`ops.compensated.sum2`), as the
 JAX package's gsum is there.
 
@@ -31,6 +35,7 @@ import torch
 
 from ..parallel.context import (compensated_on, current_axis,
                                 current_cell_weight)
+from ..runtime.timers import count, span
 from .compensated import sum2
 from .kernels import stencil7_apply
 
@@ -96,10 +101,27 @@ def _norm_factor(A, b, x, nd):
     return torch.clamp(norm, min=torch.finfo(b.dtype).tiny)
 
 
+def _any_active(act) -> bool:
+    """The loop's host read of "any lane active"."""
+    count("krylov.host_reads")
+    return bool(act.any())
+
+
+def _count_trips(trips: int, it) -> None:
+    count("krylov.trips", trips)
+    count("krylov.lane_trips", trips * it.numel())
+    count("krylov.lane_iters", it)
+
+
 def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
        rel_tol: float = 0.0, max_iter: int = 1000, nd: int = 3) -> SolverResult:
     """Preconditioned conjugate gradient for SPD A (the pressure equation).
     `nd`: trailing field dimensions (3 structured, 1 face-list)."""
+    with span("krylov.cg"):
+        return _cg(A, b, x0, M_inv, tol, rel_tol, max_iter, nd)
+
+
+def _cg(A, b, x0, M_inv, tol, rel_tol, max_iter, nd):
     if M_inv is None:
         M_inv = lambda r: r
     norm = _norm_factor(A, b, x0, nd)
@@ -116,7 +138,7 @@ def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
         return (it < max_iter) & (res > tol) & (res > rel_tol * res0)
 
     trips = 0
-    while trips < max_iter and bool(active().any()):
+    while trips < max_iter and _any_active(active()):
         for _ in range(min(CHECK_EVERY, max_iter - trips)):
             act = active()
             Ap = A(p)
@@ -139,6 +161,7 @@ def cg(A: Callable, b, x0, M_inv: Callable | None = None, tol: float = 1e-6,
             res = torch.where(act, torch.where(ok, res_n, torch.full_like(res_n, -1.0)), res)
             it = it + act.long()
             trips += 1
+    _count_trips(trips, it)
     return SolverResult(x, res0, res, it)
 
 
@@ -147,6 +170,11 @@ def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
              max_iter: int = 1000, nd: int = 3) -> SolverResult:
     """Preconditioned BiCGStab for nonsymmetric A (convection-diffusion).
     `nd`: trailing field dimensions (3 structured, 1 face-list)."""
+    with span("krylov.bicgstab"):
+        return _bicgstab(A, b, x0, M_inv, tol, rel_tol, max_iter, nd)
+
+
+def _bicgstab(A, b, x0, M_inv, tol, rel_tol, max_iter, nd):
     if M_inv is None:
         M_inv = lambda r: r
     norm = _norm_factor(A, b, x0, nd)
@@ -166,7 +194,7 @@ def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
         return (it < max_iter) & (res > tol) & (res > rel_tol * res0)
 
     trips = 0
-    while trips < max_iter and bool(active().any()):
+    while trips < max_iter and _any_active(active()):
         for _ in range(min(CHECK_EVERY, max_iter - trips)):
             act = active()
             rho_new = _dot(r_hat, r, nd)
@@ -194,6 +222,7 @@ def bicgstab(A: Callable, b, x0, M_inv: Callable | None = None,
             res = torch.where(act, torch.where(ok, res_n, torch.full_like(res_n, -1.0)), res)
             it = it + act.long()
             trips += 1
+    _count_trips(trips, it)
     return SolverResult(x, res0, res, it)
 
 

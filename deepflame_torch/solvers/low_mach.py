@@ -62,6 +62,7 @@ from ..ops.kernels import helmholtz_operator, stencil7_apply
 from ..ops.linsolve import cg, solve_fvmatrix
 from ..ops.multigrid import make_mg_preconditioner
 from ..parallel.context import gmax, gmean, gmin
+from ..runtime.timers import span
 
 __all__ = ["LowMachConfig", "LowMachState", "LowMachSolver"]
 
@@ -288,7 +289,15 @@ class LowMachSolver:
     def step(self, s: LowMachState, dt,
              sources=None) -> tuple[LowMachState, dict]:
         """One PIMPLE step. sources: the spray coupling dict Srho, SU (3,
-        ...), Sh, SY and SY_index (the species that takes SY), or None."""
+        ...), Sh, SY and SY_index (the species that takes SY), or None.
+        Tracer spans (runtime.timers): `lowmach.step` around it all; inside
+        it `lowmach.chemistry`, then per outer iteration `lowmach.props`,
+        `lowmach.UEqn`, `lowmach.YEqn`, `lowmach.EEqn`, `lowmach.thermo`
+        and `lowmach.pEqn`, then `lowmach.end`."""
+        with span("lowmach.step"):
+            return self._step(s, dt, sources)
+
+    def _step(self, s: LowMachState, dt, sources):
         cfg = self.config
         mesh = self.mesh
         dtype = s.T.dtype
@@ -302,158 +311,183 @@ class LowMachSolver:
         dpdt = s.dpdt
         diag = {}
 
+        src_rho = sources["Srho"] if sources else None
+
         # ===== chemistry (operator split, once per step)
         cscalars = s.cscalars
-        if cfg.chemistry:
-            turb_q = None
-            if self.turbulence is not None and self.combustion.reads_turb:
-                turb_q, cscalars = self._turb_q(s, dt, diag)
-            chem = self.combustion.correct(
-                T, p, torch.movedim(Y, 0, -1), dt * cfg.chemistry_dt_scale,
-                turb_q, dt_start=s.chem_dt)
-            chem_dt_new = chem.dt_next if chem.dt_next is not None else s.chem_dt
-            # splittingStrategy: the scaled-dt fractional chemistry step
-            # applies its full change within this transport step
-            RR = torch.movedim(chem.RR, -1, 0) * cfg.chemistry_dt_scale
-            diag["Qdot_max"] = gmax(chem.Qdot)
-        else:
-            RR = torch.zeros_like(Y)
-            chem_dt_new = s.chem_dt
-        src_rho = sources["Srho"] if sources else None
-        if sources is not None and sources.get("SY_index") is not None:
-            RR = RR.clone()
-            RR[sources["SY_index"]] += sources["SY"]
+        with span("lowmach.chemistry"):
+            if cfg.chemistry:
+                turb_q = None
+                if self.turbulence is not None and self.combustion.reads_turb:
+                    turb_q, cscalars = self._turb_q(s, dt, diag)
+                chem = self.combustion.correct(
+                    T, p, torch.movedim(Y, 0, -1), dt * cfg.chemistry_dt_scale,
+                    turb_q, dt_start=s.chem_dt)
+                chem_dt_new = (chem.dt_next if chem.dt_next is not None
+                               else s.chem_dt)
+                # splittingStrategy: the scaled-dt fractional chemistry step
+                # applies its full change within this transport step
+                RR = torch.movedim(chem.RR, -1, 0) * cfg.chemistry_dt_scale
+                diag["Qdot_max"] = gmax(chem.Qdot)
+            else:
+                RR = torch.zeros_like(Y)
+                chem_dt_new = s.chem_dt
+            if sources is not None and sources.get("SY_index") is not None:
+                RR = RR.clone()
+                RR[sources["SY_index"]] += sources["SY"]
 
         for outer in range(cfg.n_outer):
-            # ===== rhoEqn (explicit continuity, + the spray's mass)
-            rho = rho_old - dt * div_flux(phi, mesh)
-            if src_rho is not None:
-                rho = rho + dt * src_rho
+            with span("lowmach.props"):
+                # ===== rhoEqn (explicit continuity, + the spray's mass)
+                rho = rho_old - dt * div_flux(phi, mesh)
+                if src_rho is not None:
+                    rho = rho + dt * src_rho
 
-            # ===== coefficient fields (molecular + SGS or RAS effective)
-            mu, alpha, rhoD = self._mixture_update(p, T, Y)
-            mu_mol = mu
-            if self.turbulence is not None:
-                mu_t = self._mu_t(rho, U, s.turb)
-                mu = mu + mu_t
-                alpha = alpha + mu_t / self.turbulence.Pr_t
-                rhoD = rhoD + mu_t[None] / self.turbulence.Sc_t
+                # ===== coefficient fields (molecular + SGS or RAS effective)
+                mu, alpha, rhoD = self._mixture_update(p, T, Y)
+                mu_mol = mu
+                if self.turbulence is not None:
+                    mu_t = self._mu_t(rho, U, s.turb)
+                    mu = mu + mu_t
+                    alpha = alpha + mu_t / self.turbulence.Pr_t
+                    rhoD = rhoD + mu_t[None] / self.turbulence.Sc_t
 
             # ===== UEqn
-            U, HbyA, rAU = self._momentum(
-                rho, rho_old, U, U_old, phi, p, mu, dt,
-                SU=sources["SU"] if sources else None, stats=diag)
+            with span("lowmach.UEqn"):
+                U, HbyA, rAU = self._momentum(
+                    rho, rho_old, U, U_old, phi, p, mu, dt,
+                    SU=sources["SU"] if sources else None, stats=diag)
 
             # ===== YEqn: all species in one batched solve
-            lim_mv = None
-            scheme_h = "upwind" if cfg.mv_convection == "upwind" else cfg.div_scheme
-            if ns > 1:
-                bcs_y = self.bcs_Y_lanes
-                gY = grad(Y, bcs_y, mesh)                     # (3, ns, ...)
-                sumYDiff = (rhoD[None] * gY).sum(1)
-                phiUc = tuple(interpolate(pad_field(sumYDiff[ax], self.bcs_coeff,
-                                                    mesh), ax) for ax in range(3))
-                scheme_Y = cfg.div_scheme_Y
-                if cfg.mv_convection == "group-min":
-                    PY = pad_field(Y, bcs_y, mesh)
-                    flds = list(PY) + [pad_field(ha, bcs_h, mesh)]
-                    lim_mv = multivariate_limiter(
-                        flds, phi, mesh, [bcs_y] * ns + [bcs_h], "limitedLinear",
-                        1.0, bounded01=tuple([True] * ns + [False]))
-                elif cfg.mv_convection == "upwind":
-                    scheme_Y = "upwind"
-                D_f = tuple(interpolate(pad_field(rhoD, self.bcs_coeff, mesh), ax)
-                            for ax in range(3))
-                eqn = (fvm_ddt(rho, Y_old, dt, mesh, bcs_y, coeff_old=rho_old)
-                       + fvm_div(phi, Y, mesh, bcs_y, scheme_Y,
-                                 limiter_override=lim_mv)
-                       + fvm_div(phiUc, Y, mesh, bcs_y, "upwind",
-                                 limiter_override=lim_mv, weight_flux=phi)
-                       + fvm_laplacian(D_f, mesh, bcs_y, dtype=dtype, sign=-1.0)
-                       ).with_source(RR)
-                res = solve_fvmatrix(eqn, Y, tol=cfg.y_tol,
-                                     max_iter=cfg.max_iter_u)
-                Y_in = Y
-                Y = torch.clamp(res.x, 0.0, 1.0)
-                diag["iters_Y"] = res.iterations.max()
-                if cfg.inert_index is not None:
-                    i = cfg.inert_index
-                    # the inert lane was solved as a throwaway: restore it,
-                    # then close it as 1 - sum(others)
-                    Y = Y.clone()
-                    Y[i] = Y_in[i]
-                    others = Y.sum(0) - Y[i]
-                    Y[i] = torch.clamp(1.0 - others, 0.0, 1.0)
-                else:
-                    Y = Y / Y.sum(0, keepdim=True)
+            with span("lowmach.YEqn"):
+                lim_mv = None
+                scheme_h = ("upwind" if cfg.mv_convection == "upwind"
+                            else cfg.div_scheme)
+                if ns > 1:
+                    Y, gY, lim_mv = self._species(
+                        rho, rho_old, Y, Y_old, ha, phi, rhoD, RR, bcs_h, dt,
+                        diag)
 
             # ===== EEqn, absolute enthalpy form
-            alpha_f = tuple(interpolate(pad_field(alpha, self.bcs_coeff, mesh),
-                                        ax) for ax in range(3))
-            K = 0.5 * (U * U).sum(0)
-            K_old = 0.5 * (U_old * U_old).sum(0)
-            dKdt = (rho * K - rho_old * K_old) / dt + div_explicit(
-                phi, K, self.bcs_coeff, mesh, cfg.div_scheme)
-            hcorr_div = 0.0
-            if ns > 1:
-                # enthalpy-diffusion correction div(sum_i h_i (rhoD_i - alpha)
-                # grad Y_i), interpolated with the cubic scheme
-                h_sp = torch.movedim(self.thermo.h_species(T), -1, 0)
-                hcorr = (h_sp[None] * (rhoD - alpha)[None] * gY).sum(1)
-                hcorr_f = tuple(interpolate_cubic(
-                    pad_field(hcorr[ax], self.bcs_coeff, mesh), ax,
-                    self.bcs_coeff) for ax in range(3))
-                hcorr_div = div_flux(hcorr_f, mesh)
-            eqn_h = (fvm_ddt(rho, ha_old, dt, mesh, bcs_h, coeff_old=rho_old)
-                     + fvm_div(phi, ha, mesh, bcs_h, scheme_h,
-                               limiter_override=lim_mv)
-                     + fvm_laplacian(alpha_f, mesh, bcs_h, dtype=dtype,
-                                     sign=-1.0))
-            src_h = dpdt - dKdt + hcorr_div
-            if sources:
-                src_h = src_h + sources["Sh"]
-            eqn_h = eqn_h.with_source(src_h)
-            if cfg.solve_energy:
-                res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
-                                       max_iter=cfg.max_iter_u)
-                ha = res_h.x
-                diag["iters_h"] = res_h.iterations
+            with span("lowmach.EEqn"):
+                alpha_f = tuple(interpolate(pad_field(alpha, self.bcs_coeff,
+                                                      mesh), ax)
+                                for ax in range(3))
+                K = 0.5 * (U * U).sum(0)
+                K_old = 0.5 * (U_old * U_old).sum(0)
+                dKdt = (rho * K - rho_old * K_old) / dt + div_explicit(
+                    phi, K, self.bcs_coeff, mesh, cfg.div_scheme)
+                hcorr_div = 0.0
+                if ns > 1:
+                    # enthalpy-diffusion correction div(sum_i h_i (rhoD_i -
+                    # alpha) grad Y_i), interpolated with the cubic scheme
+                    h_sp = torch.movedim(self.thermo.h_species(T), -1, 0)
+                    hcorr = (h_sp[None] * (rhoD - alpha)[None] * gY).sum(1)
+                    hcorr_f = tuple(interpolate_cubic(
+                        pad_field(hcorr[ax], self.bcs_coeff, mesh), ax,
+                        self.bcs_coeff) for ax in range(3))
+                    hcorr_div = div_flux(hcorr_f, mesh)
+                eqn_h = (fvm_ddt(rho, ha_old, dt, mesh, bcs_h,
+                                 coeff_old=rho_old)
+                         + fvm_div(phi, ha, mesh, bcs_h, scheme_h,
+                                   limiter_override=lim_mv)
+                         + fvm_laplacian(alpha_f, mesh, bcs_h, dtype=dtype,
+                                         sign=-1.0))
+                src_h = dpdt - dKdt + hcorr_div
+                if sources:
+                    src_h = src_h + sources["Sh"]
+                eqn_h = eqn_h.with_source(src_h)
+                if cfg.solve_energy:
+                    res_h = solve_fvmatrix(eqn_h, ha, tol=cfg.h_tol,
+                                           max_iter=cfg.max_iter_u)
+                    ha = res_h.x
+                    diag["iters_h"] = res_h.iterations
 
             # ===== correctThermo: T from (ha, Y)
-            Yt = torch.movedim(Y, 0, -1)
-            T = self.thermo.T_from_h(ha, Yt, T)
-            psi = self.thermo.psi(T, Yt)
+            with span("lowmach.thermo"):
+                Yt = torch.movedim(Y, 0, -1)
+                T = self.thermo.T_from_h(ha, Yt, T)
+                psi = self.thermo.psi(T, Yt)
 
             # ===== pEqn correctors
-            rho_fn = lambda pp: self.thermo.rho(pp, T, Yt)
-            p_prev, U_prev = p, U
-            p, phi, U, dpdt, rho, p_res = self._pressure_loop(
-                p, p_old, psi, rho_fn, HbyA, rAU, dt, rho_old=rho_old,
-                phi_old=s.phi, rhoU_old_f=self._face_flux(rho_old, U_old),
-                src_rho=src_rho, stats=diag)
-            diag[f"p_res_{outer}"] = p_res
-            if outer < cfg.n_outer - 1:
-                p = p_prev + cfg.p_relax * (p - p_prev)
-                U = U_prev + cfg.u_relax * (U - U_prev)
-                rho = rho_fn(p)
-                dpdt = (p - p_old) / dt
+            with span("lowmach.pEqn"):
+                rho_fn = lambda pp: self.thermo.rho(pp, T, Yt)
+                p_prev, U_prev = p, U
+                p, phi, U, dpdt, rho, p_res = self._pressure_loop(
+                    p, p_old, psi, rho_fn, HbyA, rAU, dt, rho_old=rho_old,
+                    phi_old=s.phi, rhoU_old_f=self._face_flux(rho_old, U_old),
+                    src_rho=src_rho, stats=diag)
+                diag[f"p_res_{outer}"] = p_res
+                if outer < cfg.n_outer - 1:
+                    p = p_prev + cfg.p_relax * (p - p_prev)
+                    U = U_prev + cfg.u_relax * (U - U_prev)
+                    rho = rho_fn(p)
+                    dpdt = (p - p_old) / dt
 
-        # ===== turbulence->correct(): RAS transport at the end of the step
-        turb = s.turb
-        if self.is_ras:
-            k_new, eps_new, _ = self.turbulence.advance(
-                turb[0], turb[1], rho, rho_old, phi, U, mu_mol, self.bcs_U,
-                self.bcs_coeff, mesh, dt)
-            turb = (k_new, eps_new)
-            diag["k_max"] = gmax(k_new)
+        with span("lowmach.end"):
+            # ===== turbulence->correct(): RAS transport at the end of the step
+            turb = s.turb
+            if self.is_ras:
+                k_new, eps_new, _ = self.turbulence.advance(
+                    turb[0], turb[1], rho, rho_old, phi, U, mu_mol, self.bcs_U,
+                    self.bcs_coeff, mesh, dt)
+                turb = (k_new, eps_new)
+                diag["k_max"] = gmax(k_new)
 
-        rho_eos = self.thermo.rho(p, T, torch.movedim(Y, 0, -1))
-        diag["continuity_err"] = gmax((rho_eos - rho).abs()) / gmean(rho)
-        diag["T_min"] = gmin(T)
-        diag["T_max"] = gmax(T)
-        return LowMachState(rho=rho, U=U, p=p, ha=ha, Y=Y, T=T, phi=phi,
-                            dpdt=dpdt, time=s.time + dt, turb=turb,
-                            cscalars=cscalars, chem_dt=chem_dt_new), diag
+            rho_eos = self.thermo.rho(p, T, torch.movedim(Y, 0, -1))
+            diag["continuity_err"] = gmax((rho_eos - rho).abs()) / gmean(rho)
+            diag["T_min"] = gmin(T)
+            diag["T_max"] = gmax(T)
+            return LowMachState(rho=rho, U=U, p=p, ha=ha, Y=Y, T=T, phi=phi,
+                                dpdt=dpdt, time=s.time + dt, turb=turb,
+                                cscalars=cscalars, chem_dt=chem_dt_new), diag
+
+    def _species(self, rho, rho_old, Y, Y_old, ha, phi, rhoD, RR, bcs_h, dt,
+                 diag):
+        """YEqn: all species in one batched solve. Returns (Y, grad Y, the
+        multivariate limiter or None)."""
+        cfg = self.config
+        mesh = self.mesh
+        ns = Y.shape[0]
+        lim_mv = None
+        bcs_y = self.bcs_Y_lanes
+        gY = grad(Y, bcs_y, mesh)                     # (3, ns, ...)
+        sumYDiff = (rhoD[None] * gY).sum(1)
+        phiUc = tuple(interpolate(pad_field(sumYDiff[ax], self.bcs_coeff,
+                                            mesh), ax) for ax in range(3))
+        scheme_Y = cfg.div_scheme_Y
+        if cfg.mv_convection == "group-min":
+            PY = pad_field(Y, bcs_y, mesh)
+            flds = list(PY) + [pad_field(ha, bcs_h, mesh)]
+            lim_mv = multivariate_limiter(
+                flds, phi, mesh, [bcs_y] * ns + [bcs_h], "limitedLinear",
+                1.0, bounded01=tuple([True] * ns + [False]))
+        elif cfg.mv_convection == "upwind":
+            scheme_Y = "upwind"
+        D_f = tuple(interpolate(pad_field(rhoD, self.bcs_coeff, mesh), ax)
+                    for ax in range(3))
+        eqn = (fvm_ddt(rho, Y_old, dt, mesh, bcs_y, coeff_old=rho_old)
+               + fvm_div(phi, Y, mesh, bcs_y, scheme_Y,
+                         limiter_override=lim_mv)
+               + fvm_div(phiUc, Y, mesh, bcs_y, "upwind",
+                         limiter_override=lim_mv, weight_flux=phi)
+               + fvm_laplacian(D_f, mesh, bcs_y, dtype=Y.dtype, sign=-1.0)
+               ).with_source(RR)
+        res = solve_fvmatrix(eqn, Y, tol=cfg.y_tol, max_iter=cfg.max_iter_u)
+        Y_in = Y
+        Y = torch.clamp(res.x, 0.0, 1.0)
+        diag["iters_Y"] = res.iterations.max()
+        if cfg.inert_index is not None:
+            i = cfg.inert_index
+            # the inert lane was solved as a throwaway: restore it, then
+            # close it as 1 - sum(others)
+            Y = Y.clone()
+            Y[i] = Y_in[i]
+            others = Y.sum(0) - Y[i]
+            Y[i] = torch.clamp(1.0 - others, 0.0, 1.0)
+        else:
+            Y = Y / Y.sum(0, keepdim=True)
+        return Y, gY, lim_mv
 
     def courant(self, s: LowMachState, dt) -> torch.Tensor:
         """Largest Courant number, max over the axes of gmax(|U_ax|) dt /

@@ -7,6 +7,7 @@ checkpoint contents must be equal.
 """
 import dataclasses
 import glob
+import json
 import os
 import shutil
 
@@ -286,15 +287,30 @@ def test_factory_selection():
 
 
 def test_phase_timers_and_trace(tmp_path):
-    timers = ttimers.PhaseTimers()
-    for _ in range(2):
-        with timers.phase("solve"):
-            torch.ones(8).sum()
-    assert timers.counts["solve"] == 2
-    assert "solve" in timers.report()
-    with ttimers.trace(str(tmp_path)):
+    with ttimers.tracing() as timers:
+        for _ in range(2):
+            with ttimers.span("solve"):
+                torch.ones(8).sum()
+    rec = timers.read()
+    assert [s.name for s in rec.spans] == ["solve", "solve"]
+    assert "solve" in timers.report(rec)
+    with timers.phase("io"):                # recorded with tracing off too
         torch.ones(8).sum()
+    assert [s.name for s in timers.read().spans] == ["io"]
+    with ttimers.tracing():
+        with ttimers.trace(str(tmp_path)):
+            with ttimers.span("solve"):
+                with ttimers.span("solve.inner"):
+                    torch.ones(8).sum()
     assert os.path.getsize(tmp_path / "trace.json") > 0
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    got = {e["name"]: e for e in events
+           if e.get("cat") == "user_annotation"}
+    assert {"solve", "solve.inner"} <= set(got)
+    outer, inner = got["solve"], got["solve.inner"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
 
 
 def test_run_case_restart_keeps_the_float32_clock(tmp_path):
