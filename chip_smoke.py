@@ -28,8 +28,10 @@ toolkit (nvcc). In order:
    chamber's meshes; the jet's pressure matvec as the solver calls it,
    pad_field and the padded form against the BC form in turns (old, new,
    new, old: device ms and device operations per matvec, wall ms per
-   call); and the ELL SpMV on the blockMesh jet's and the blockMesh
-   chamber's connectivity;
+   call); the ELL SpMV on the blockMesh jet's and the blockMesh
+   chamber's connectivity; and correctThermo's Newton kernel (thermo7:
+   T(h, Y) and psi, 8 steps) at the benchmark's 7,077,888 cells x 9
+   species in float32 and float64, against T_from_h_plain then psi;
 3. checks whole steps on the card against the port's plain CPU path (the
    path the CPU tests hold against the JAX package) on small float64 cases:
    the stiff-chemistry case, the DNN-chemistry case, the face-list jet, the
@@ -250,9 +252,9 @@ toolkit (nvcc). In order:
    these three; the detonation at 625 cells in float32,
    gj_inverse must launch (1 + 1 steps), the front and p_max printed; the
    shock dry and
-   with the fog, float32, 1 + 2 steps each, and the droplet's three runs
-   whole in float64 (within 2 % of the reference integration), no kernel
-   may launch on these; then the stencil and the Helmholtz BC form at the
+   with the fog, float32, 1 + 2 steps each (no kernel but thermo7 may
+   launch), and the droplet's three runs whole in float64 (within 2 % of
+   the reference integration, no kernel may launch); then the stencil and the Helmholtz BC form at the
    three low-Mach meshes with their BCs, and gj_inverse at the smallest
    and the largest drain of each type's timed steps, in a fresh worker,
    each against its plain version;
@@ -510,12 +512,85 @@ def phase_kernels(torch, K, jet_conn, chamber_conn) -> dict:
     row = _ell_figures(torch, K, g, chamber_conn)
     print("ell_matvec at the face-list chamber's shape: " + json.dumps(row))
     out["ell_matvec"]["chamber_shape"] = row
+    out["thermo7"] = _thermo_row(torch, K, torch.float32)
+    out["thermo7"]["f64"] = _thermo_row(torch, K, torch.float64)
     for name, f in out.items():
         print(f"{name}: kernel {f['ms']:.4f} ms on the device "
               f"({f['call_ms']:.4f} ms per wrapper call back to back), "
               f"plain {f['plain_ms']:.4f} ms, library {f['library_ms']} ms, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
     return out
+
+
+def thermo_work(cells: int, ns: int, iters: int, itemsize: int):
+    """(bytes, operations) of correctThermo's Newton kernel: h, T_guess and
+    ns mass fractions read once, T and psi written once; per cell Y_i/W_i
+    and their sum (2 ns), 1/sum, `iters` steps of 24 operations a species
+    (cp/R: 4 FMA; h/(R T): t a4, / 5, 4 FMA, a5 / t and an add; two FMA
+    sums; an FMA counted as two) and 6 a step (R T, the two products, the
+    residual, its quotient, the update), and psi's 2."""
+    n_ops = 2 * ns + 1 + iters * (24 * ns + 6) + 2
+    return (ns + 4) * itemsize * cells, float(n_ops) * cells
+
+
+def _thermo_row(torch, K, dtype, n: int = 192, iters: int = 8) -> dict:
+    """thermo7 (ThermoData.T_psi_from_h on CUDA tensors) against
+    T_from_h_plain then psi on the card at the benchmark's n^3 cells x 9
+    species: partly burnt stoichiometric H2/air with radicals up to 1e-3, T
+    over 300-2800 K, T_guess within 10 % of T, Y as the low-Mach solver
+    passes it (the movedim view of the species-major fields); two seeded
+    operand sets (each above the 50 MB L2). Tolerance: T within 2e-6
+    (float32) or 1e-12 (float64) of its largest value, and psi of psi(T)
+    at the kernel's T. Bound: thermo_work against the SIMT peak of the
+    type."""
+    from deepflame_torch.chemistry import load_mechanism, make_thermo
+    dev = "cuda"
+    mech = load_mechanism(MECH, device=dev)
+    th = make_thermo(mech, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    cells, ns = n ** 3, th.W.shape[0]
+    sp = {name: i for i, name in enumerate(mech.species_names)}
+    unburnt, burnt = torch.zeros((2, ns, 1), device=dev, dtype=dtype)
+    unburnt[[sp["H2"], sp["O2"], sp["N2"]], 0] = torch.tensor(
+        [0.0283, 0.2264, 0.7453], device=dev, dtype=dtype)
+    burnt[[sp["H2O"], sp["N2"]], 0] = torch.tensor([0.2547, 0.7453],
+                                                  device=dev, dtype=dtype)
+    radicals = [sp[k] for k in ("H", "O", "OH", "HO2", "H2O2")]
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev,
+                                     dtype=dtype)
+    sets = []
+    for _ in range(2):
+        c = rand(1, cells)
+        Y = (1 - c) * unburnt + c * burnt
+        Y[radicals] += 1e-3 * rand(len(radicals), cells)
+        Y = Y / Y.sum(0)
+        Yt = torch.movedim(Y, 0, -1)
+        T = 300.0 + 2500.0 * rand(cells)
+        sets.append([th.h_mass(T, Yt), Yt, T * (0.9 + 0.2 * rand(cells))])
+        del c, T
+    plain = lambda h, Y, Tg: (lambda T: (T, th.psi(T, Y)))(
+        th.T_from_h_plain(h, Y, Tg, iters))
+    Tk, Pk = th.T_psi_from_h(*sets[0])
+    err, rel = max_rel_err(torch, Tk, plain(*sets[0])[0])
+    _, rel_psi = max_rel_err(torch, Pk, th.psi(Tk, sets[0][1]))
+    tol = 2e-6 if dtype == torch.float32 else 1e-12
+    name = str(dtype).replace("torch.", "")
+    print(f"thermo7 {cells} x {ns} {name}: T max abs err {err:.3e} K, rel "
+          f"{rel:.3e}; psi rel {rel_psi:.3e} (tolerance {tol:g} of the "
+          f"largest)")
+    check(rel <= tol and rel_psi <= tol,
+          f"thermo7 {name} disagrees with T_from_h_plain then psi")
+    del Tk, Pk
+    n_bytes, n_ops = thermo_work(cells, ns, iters, dtype.itemsize)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOP_PER_S
+                          if dtype == torch.float32 else FP64_FLOP_PER_S)
+    return dict(
+        route="cuda", source="deepflame_torch/csrc/thermo7.cu",
+        replaces="none (eager ThermoData.T_from_h + psi)", max_abs_err=err,
+        max_rel_err=rel, psi_rel_err=rel_psi,
+        **timings(torch, th.T_psi_from_h, "thermo7_kernel", plain, sets,
+                  plain_reps=3),
+        bound_ms=b_ms, bound_by=b_by, shape=[cells, ns], dtype=name)
 
 
 def _stencil_row(torch, K, g, shape, open_boundaries: bool) -> dict:
@@ -1083,10 +1158,13 @@ def _ell_figures(torch, K, g, conn) -> dict:
 
 # kernels each path must launch during its timed steps (hs and fgm check
 # theirs in their phases: gj_inverse; stencil7_apply and helmholtz7_apply)
-PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse"),
-                "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused"),
-                "fl": ("ell_matvec", "gj_inverse"),
-                "sjet": ("stencil7_apply", "helmholtz7_apply", "gj_inverse")}
+PATH_KERNELS = {"stiff": ("stencil7_apply", "helmholtz7_apply", "gj_inverse",
+                          "thermo7"),
+                "dnn": ("stencil7_apply", "helmholtz7_apply", "mlp_fused",
+                        "thermo7"),
+                "fl": ("ell_matvec", "gj_inverse", "thermo7"),
+                "sjet": ("stencil7_apply", "helmholtz7_apply", "gj_inverse",
+                         "thermo7")}
 STEP_DT = {"stiff": DT, "dnn": DT, "fl": JET_DT, "sjet": JET_DT,
            "fljet": JET_DT,
            "sjet-pasr": JET_DT}
@@ -1332,6 +1410,8 @@ def phase_main(torch, K, path: str, n: int, steps: int,
     if path == "dnn":
         check(counts["mlp_fused"] == steps,
               f"mlp_fused launched {counts['mlp_fused']} times in {steps} steps")
+        check(counts["thermo7"] == steps,
+              f"thermo7 launched {counts['thermo7']} times in {steps} steps")
     check(bool(torch.isfinite(state.T).all() and torch.isfinite(state.p).all()),
           f"{path}: non-finite T or p")
     check(float((state.T - T_before).abs().max()) > 0.0, f"{path}: T did not change")
@@ -5127,7 +5207,8 @@ def _ex_paths(torch, K):
           f"not launch: {c}")
     del solver, s
 
-    # A20, float32, dry and through the fog: no kernel on the path
+    # A20, float32, dry and through the fog: no kernel on the path but the
+    # primitives' Newton T(e), thermo7
     for name in ("shock_dry", "shock_fog"):
         solver, s, dt, info = _ex_build(name, "cuda", f32,
                                         dry=name == "shock_dry")
@@ -5135,8 +5216,10 @@ def _ex_paths(torch, K):
             torch, K, f"{name} 240 cells float32", solver, s, dt,
             EX_STEPS[name])
         counts["ex-" + name] = c
-        check(all(v == 0 for v in c.values()), f"examples {name}: a kernel "
-              f"launched: {c}")
+        check(c["thermo7"] > 0 and all(
+            v == 0 for k, v in c.items() if k != "thermo7"),
+            f"examples {name}: a kernel other than thermo7 launched, or "
+            f"thermo7 did not: {c}")
 
     # A21: the example's three runs whole, float64, against the reference
     worst, n_steps = 0.0, 0
@@ -5252,6 +5335,9 @@ def main() -> int:
             print(f"  {name}: {fn}: {regs} registers, {stack} bytes of "
                   f"stack, {stores} bytes of spill stores, {loads} of "
                   f"spill loads")
+            if name == "thermo7":
+                check(stack == stores == loads == 0,
+                      f"thermo7: {fn} spills or keeps a stack frame")
 
     seconds, t_phase = {}, time.perf_counter()
 
@@ -5427,8 +5513,8 @@ def main() -> int:
     phase_done("examples")
 
     # each kernel's launches on its own path, and on every path
-    own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl"}.get(name,
-                                                                    "stiff")
+    own = lambda name: {"mlp_fused": "dnn", "ell_matvec": "fl",
+                        "thermo7": "dnn"}.get(name, "stiff")
     kernels = [dict(name=name, launches=counts[own(name)][name],
                     launches_by_path={p: c[name] for p, c in counts.items()},
                     **f)

@@ -2,16 +2,22 @@
 
 Port of deepflame_tpu/chemistry/thermo.py. All functions are shape-agnostic:
 `T` may be a scalar tensor or any batch shape (...,), `Y` is (..., ns).
+The Newton inversions launch one CUDA kernel (`ops.kernels.thermo7`) for
+CUDA tensors and run their plain versions (`T_from_h_plain`,
+`T_from_e_plain`) on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..constants import GAS_CONSTANT
 from ..device import resolve_device
+from ..ops import kernels
+from ..runtime.timers import count
 from .mechanism import Mechanism
 
 __all__ = ["ThermoData", "make_thermo"]
@@ -116,20 +122,64 @@ class ThermoData:
     # ---- inverse property solves (Newton, fixed iteration count) ----
     def T_from_h(self, h, Y, T_guess, iters: int = 8):
         """Temperature from absolute enthalpy: 8 Newton steps from the
-        previous temperature (quadratic convergence, cp > 0)."""
+        previous temperature (quadratic convergence, cp > 0). One kernel
+        launch for CUDA tensors, the plain version on the CPU."""
+        if h.is_cuda:
+            return self._newton_kernel(h, Y, T_guess, iters, False, False)
+        count("thermo.newton_plain")
+        return self.T_from_h_plain(h, Y, T_guess, iters)
+
+    def T_from_e(self, e, Y, T_guess, iters: int = 8):
+        """Temperature from absolute internal energy (Newton on cv). One
+        kernel launch for CUDA tensors, the plain version on the CPU."""
+        if e.is_cuda:
+            return self._newton_kernel(e, Y, T_guess, iters, True, False)
+        count("thermo.newton_plain")
+        return self.T_from_e_plain(e, Y, T_guess, iters)
+
+    def T_psi_from_h(self, h, Y, T_guess, iters: int = 8):
+        """(T, psi): correctThermo, `T_from_h` then `psi`; one kernel launch
+        for CUDA tensors."""
+        if h.is_cuda:
+            return self._newton_kernel(h, Y, T_guess, iters, False, True)
+        T = self.T_from_h(h, Y, T_guess, iters)
+        return T, self.psi(T, Y)
+
+    def T_from_h_plain(self, h, Y, T_guess, iters: int = 8):
+        """Plain version of `T_from_h` (the JAX package's arithmetic)."""
         T = torch.clamp(T_guess, self.T_min, self.T_max)
         for _ in range(iters):
             f = self.h_mass(T, Y) - h
             T = torch.clamp(T - f / self.cp_mass(T, Y), self.T_min, self.T_max)
         return T
 
-    def T_from_e(self, e, Y, T_guess, iters: int = 8):
-        """Temperature from absolute internal energy (Newton on cv)."""
+    def T_from_e_plain(self, e, Y, T_guess, iters: int = 8):
+        """Plain version of `T_from_e`."""
         T = torch.clamp(T_guess, self.T_min, self.T_max)
         for _ in range(iters):
             f = self.e_mass(T, Y) - e
             T = torch.clamp(T - f / self.cv_mass(T, Y), self.T_min, self.T_max)
         return T
+
+    @functools.cached_property
+    def kernel_table(self) -> torch.Tensor:
+        """(ns, 20) in the tables' dtype and device, the layout
+        csrc/thermo7.cu reads: T_mid, 1/W, then for the low and the high
+        range a0..a4, a1/2, a2/3, a3/4, a5 (the quotients as the plain
+        Horner forms take them). Made once per ThermoData."""
+        def part(a):
+            return torch.stack([a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4],
+                                a[:, 1] / 2, a[:, 2] / 3, a[:, 3] / 4,
+                                a[:, 5]], 1)
+        return torch.cat([self.T_mid[:, None], self.inv_W[:, None],
+                          part(self.coeffs_low), part(self.coeffs_high)],
+                         1).contiguous()
+
+    def _newton_kernel(self, value, Y, T_guess, iters, energy, psi):
+        count("thermo.newton_kernel")
+        return kernels.thermo7(value, Y, T_guess, self.kernel_table,
+                               self.T_min, self.T_max, GAS_CONSTANT, iters,
+                               energy=energy, psi=psi)
 
 
 def make_thermo(mech: Mechanism, dtype=torch.float64, device=None) -> ThermoData:

@@ -2,7 +2,8 @@
 their build.
 
 Five CUDA C++ kernels (sources in `deepflame_torch/csrc/`) replace the five
-Pallas TPU kernels of the low-Mach steps:
+Pallas TPU kernels of the low-Mach steps, and a sixth replaces eager PyTorch
+on the solver path:
 
 =====================  =====================================================
 wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
@@ -30,6 +31,12 @@ wrapper                replaces (deepflame_tpu/ops/pallas_kernels.py)
                        tiled GEMMs on the FP64 tensor cores)
 `ell_matvec`           `ell_matvec`: the pressure-CG matvec of the face-list
                        step on a general (blockMesh, polyMesh) mesh
+`thermo7`              no TPU kernel (XLA fuses `ThermoData.T_from_h`):
+                       correctThermo, the clamped NASA-7 Newton inversion
+                       T(h, Y) or T(e, Y) and psi, a thread per cell; its
+                       plain version is ThermoData's `T_from_h_plain` /
+                       `T_from_e_plain`, and ThermoData picks the kernel
+                       for CUDA tensors
 =====================  =====================================================
 
 Each wrapper takes the plain PyTorch version beside it for tensors on the CPU
@@ -70,7 +77,8 @@ __all__ = ["stencil7_apply", "helmholtz7_apply", "helmholtz7_apply_bc",
            "helmholtz_apply_plain", "helmholtz_apply_bc_plain", "GhostRule",
            "ghost_rule", "helmholtz_operator", "gj_inverse_plain",
            "mlp_fused_plain", "mlp_pack", "mlp_plan", "gj_limits",
-           "ell_matvec", "ell_matvec_plain", "launches", "reset_launches",
+           "ell_matvec", "ell_matvec_plain", "thermo7", "THERMO7_MAX_NS",
+           "launches", "reset_launches",
            "build", "ptxas_report", "find_nvcc", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -97,6 +105,8 @@ _KERNELS = {
            for mode in ("bf16", "f32", "f64")},
         "plan": [_I, _L] + [_I] * 5 + [_P] * 3}),
     "ell_matvec": ("ell_matvec.cu", [_P] * 5 + [_L, _I, _P]),
+    "thermo7": ("thermo7.cu", [_P, _P, _L, _L] + [_P] * 4 + [_L] + [_I] * 3
+                + [_D] * 3 + [_P]),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
@@ -623,3 +633,47 @@ def ell_matvec(x, diag, nbr, coef):
     _launch("ell_matvec", x.dtype, x.device, x.data_ptr(), diag.data_ptr(),
             nbr.data_ptr(), coef.data_ptr(), out.data_ptr(), n, nbr.shape[1])
     return out
+
+
+# ------------------------------------------------- NASA-7 Newton inversion
+
+THERMO7_MAX_NS = 256      # csrc/thermo7.cu's kMaxNs: the table in shared memory
+
+
+def thermo7(value, Y, T_guess, table, T_min: float, T_max: float, R: float,
+            iters: int = 8, energy: bool = False, psi: bool = False):
+    """T from the mixture's absolute enthalpy (or, with `energy`, internal
+    energy) `value` and mass fractions Y: T_guess clamped to [T_min,
+    T_max], then `iters` clamped Newton steps on the NASA-7 table `table`
+    (`ThermoData.kernel_table`, (ns, 20)) with gas constant R; with `psi`
+    also psi = W_mix / (R T). One launch, CUDA tensors only (ThermoData's
+    `T_from_h` / `T_from_e` take the plain version on the CPU).
+
+    value, T_guess: one batch shape; Y: that shape + (ns,), any strides,
+    read in place where the batch axes collapse to one (the low-Mach
+    solver's `movedim` view, a (cells, ns) block, a row expanded over
+    cells). All of one type, float32 or float64. Returns T, or (T, psi)."""
+    ns = table.shape[0]
+    shape = value.shape
+    if (T_guess.shape != shape or Y.shape != (*shape, ns)
+            or table.shape != (ns, 20)):
+        raise ValueError(f"thermo7: shapes value {tuple(shape)}, T_guess "
+                         f"{tuple(T_guess.shape)}, Y {tuple(Y.shape)}, table "
+                         f"{tuple(table.shape)}; expected (...), (...), "
+                         f"(..., ns), (ns, 20)")
+    if ns > THERMO7_MAX_NS:
+        raise ValueError(f"thermo7: {ns} species exceed {THERMO7_MAX_NS}")
+    v, tg = value.contiguous().reshape(-1), T_guess.contiguous().reshape(-1)
+    y = Y.reshape(-1, ns)
+    _check("thermo7", [v, tg, table])
+    if y.device != v.device or y.dtype != v.dtype:
+        raise ValueError(f"thermo7: Y on {y.device}/{y.dtype}, expected "
+                         f"{v.device}/{v.dtype}")
+    T = torch.empty_like(v)
+    P = torch.empty_like(v) if psi else None
+    if v.numel():
+        _launch("thermo7", v.dtype, v.device, v.data_ptr(), y.data_ptr(),
+                y.stride(0), y.stride(1), tg.data_ptr(), table.data_ptr(),
+                T.data_ptr(), P.data_ptr() if psi else None, v.numel(), ns,
+                iters, int(energy), T_min, T_max, R)
+    return (T.reshape(shape), P.reshape(shape)) if psi else T.reshape(shape)

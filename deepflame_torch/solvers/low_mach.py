@@ -406,8 +406,7 @@ class LowMachSolver:
             # ===== correctThermo: T from (ha, Y)
             with span("lowmach.thermo"):
                 Yt = torch.movedim(Y, 0, -1)
-                T = self.thermo.T_from_h(ha, Yt, T)
-                psi = self.thermo.psi(T, Yt)
+                T, psi = self.thermo.T_psi_from_h(ha, Yt, T)
 
             # ===== pEqn correctors
             with span("lowmach.pEqn"):

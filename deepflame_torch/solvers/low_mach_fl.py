@@ -444,8 +444,7 @@ class LowMachSolverFL:
                 diag["iters_h"] = res_h.iterations
 
             # ===== correctThermo
-            T = self.thermo.T_from_h(ha, Y, T)
-            psi = self.thermo.psi(T, Y)
+            T, psi = self.thermo.T_psi_from_h(ha, Y, T)
 
             # ===== pEqn correctors
             rho_fn = lambda pp: self.thermo.rho(pp, T, Y)

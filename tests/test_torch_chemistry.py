@@ -86,10 +86,13 @@ def _rel(a, b):
     return np.abs(a - b.numpy()).max() / max(np.abs(a).max(), 1e-300)
 
 
+@pytest.mark.parametrize("inversion", ["T_from_h", "T_psi_from_h"])
 @pytest.mark.parametrize("name", MECHS)
-def test_thermo_matches_jax(name):
+def test_thermo_matches_jax(name, inversion):
     """float64, <= 1e-12 of each property's largest value (the same NASA-7
-    Horner forms; only summation orders differ)."""
+    Horner forms; only summation orders differ). The Newton inversion alone
+    (`T_from_h`) and with psi in one call (`T_psi_from_h`, which on the CPU
+    is T_from_h then psi, bit for bit)."""
     path = os.path.join(DATA, name)
     mj, mt = load_mechanism(path), tc.load_mechanism(path, device="cpu")
     thj, tht = make_thermo(mj), tc.make_thermo(mt)
@@ -101,8 +104,15 @@ def test_thermo_matches_jax(name):
         assert _rel(getattr(thj, f)(T, Y), getattr(tht, f)(Tt, Yt)) <= 1e-12, f
     assert _rel(thj.rho(p, T, Y), tht.rho(pt, Tt, Yt)) <= 1e-12
     h = np.asarray(thj.h_mass(T, Y))
-    assert _rel(thj.T_from_h(h, Y, T * 0.9),
-                tht.T_from_h(torch.as_tensor(h), Yt, Tt * 0.9)) <= 1e-12
+    T_j = thj.T_from_h(h, Y, T * 0.9)
+    T_t = tht.T_from_h(torch.as_tensor(h), Yt, Tt * 0.9)
+    if inversion == "T_psi_from_h":
+        T_p, psi_t = tht.T_psi_from_h(torch.as_tensor(h), Yt, Tt * 0.9)
+        assert torch.equal(T_p, T_t)
+        assert torch.equal(psi_t, tht.psi(T_t, Yt))
+        assert _rel(thj.psi(T_j, Y), psi_t) <= 1e-12
+        T_t = T_p
+    assert _rel(T_j, T_t) <= 1e-12
     assert _rel(thj.h_formation, tht.h_formation) <= 1e-15
 
 

@@ -74,3 +74,22 @@ def test_gj_bound_at_smoke_shapes(n, L, size, ms, by):
     assert b_ms == pytest.approx(ms, rel=2e-3)
     assert b_ms == pytest.approx(2 * n * n * L * size / cs.HBM_BYTES_PER_S
                                  * 1e3)
+
+
+@pytest.mark.parametrize("size,rate,ms,by", [
+    (4, 67e12, 0.1898, "operations"),
+    (8, 34e12, 0.3741, "operations")])
+def test_thermo_bound_at_the_benchmark_shape(size, rate, ms, by):
+    """correctThermo's Newton kernel at 192^3 cells x 9 species, 8 steps:
+    h, T_guess and 9 mass fractions read, T and psi written (13 values a
+    cell); 1,797 operations a cell over the SIMT peak of the type (67
+    TFLOP/s float32, 34 float64)."""
+    cs = _smoke()
+    cells = 192 ** 3
+    n_bytes, n_ops = cs.thermo_work(cells, 9, 8, size)
+    assert n_bytes == 13 * size * cells
+    assert n_ops == (2 * 9 + 1 + 8 * (24 * 9 + 6) + 2) * cells == 1797 * cells
+    b_ms, b_by = cs.bound_ms(n_bytes, n_ops, rate)
+    assert b_by == by
+    assert b_ms == pytest.approx(ms, abs=5e-4)
+    assert cs.FP64_FLOP_PER_S == 34e12
