@@ -1426,6 +1426,7 @@ def phase_main(torch, K, path: str, n: int, steps: int,
               f"{path}: mass fractions do not sum to 1")
     if path == "dnn":
         _check_dnn_rates(torch, solver, state)
+        _check_dnn_lanes(torch, K, solver, state)
     _breakdown_step(torch, solver, state, path)
     if profile or path == "dnn":
         _profile_step(torch, solver, state, ms, profile, path)
@@ -1502,6 +1503,31 @@ def _check_dnn_rates(torch, solver, state) -> None:
     check(float(sum_rr) <= 1e-5, "RR does not sum to zero per cell")
     check(float((chem.Y.sum(-1) - 1.0).abs().max()) < 1e-5,
           "the chemistry's Y does not sum to 1")
+
+
+def _check_dnn_lanes(torch, K, solver, state) -> None:
+    """One traced step: the nets see the cells above frozen_T alone (the
+    program's counters dnn.lanes and dnn.cells), one mlp_fused call at that
+    batch, whose plan gives the CUDA launches a call and the scratch."""
+    from deepflame_torch.runtime import timers
+
+    net = solver.combustion.net
+    hot = int((state.T > net.frozen_T).sum())
+    K.reset_launches()
+    with timers.tracing() as tr:
+        solver.step(state, DT)
+    c = tr.read().counters
+    Ws, _ = net._weights(net.compute_dtype)
+    S, K1, H1 = Ws[0].shape
+    plan = K.mlp_plan(Ws[0].dtype, c["dnn.lanes"], S, K1, H1,
+                      Ws[1].shape[2], Ws[2].shape[2])
+    print(f"dnn path: {c['dnn.lanes']} of {c['dnn.cells']} cells to the nets "
+          f"a step (T > {net.frozen_T:g} K); mlp_fused at that B: "
+          f"{K.launches['mlp_fused']} call, {plan[1]} CUDA launches, "
+          f"{plan[2]} bytes of scratch")
+    check(c["dnn.lanes"] == hot and 0 < hot < c["dnn.cells"]
+          and K.launches["mlp_fused"] == 1,
+          f"dnn path: {c} with {hot} cells above frozen_T")
 
 
 def _timed_inside(torch, owner, attr, run):
@@ -4008,9 +4034,10 @@ class _LaunchArgs:
     (ops.kernels._launch wrapped): table() = {kernel: {(form, dtype, the
     launch's trailing size arguments): launches}}, the trailing arguments
     of helmholtz7_apply's padded form (nx, ny, nz, 1/hx^2, 1/hy^2,
-    1/hz^2), gj_inverse's (n, L) and ell_matvec's (n, w); other forms by
-    their name alone."""
-    TAIL = {"helmholtz7_apply": 6, "gj_inverse": 2, "ell_matvec": 2}
+    1/hz^2), gj_inverse's (n, L), ell_matvec's (n, w) and mlp_fused's (B,
+    F, K1, H1, H2, H3, S); other forms by their name alone."""
+    TAIL = {"helmholtz7_apply": 6, "gj_inverse": 2, "ell_matvec": 2,
+            "mlp_fused": 7}
 
     def __init__(self, K):
         self.K = K
@@ -4748,7 +4775,7 @@ def _dnnloop_path(torch, K, rows_pool, Yb, data_run):
     plan = {"ode": (0, DNNLOOP_ODE_STEPS, 0),
             "dnn": (1, DNNLOOP_ODE_STEPS - 1,
                     DNNLOOP_STEPS - DNNLOOP_ODE_STEPS + 1)}
-    final, gj_lanes = {}, []
+    final, gj_lanes, mlp_lanes, hot = {}, [], [], []
     for name, solver in solvers.items():
         n_warm, n_cmp, n_more = plan[name]
         t0 = time.perf_counter()
@@ -4758,19 +4785,39 @@ def _dnnloop_path(torch, K, rows_pool, Yb, data_run):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         key = f"dnnloop-{name}"
-        with _LaunchArgs(K) as spy:
-            s, diag, c, wall = _timed_steps(torch, K, solver, s, dt, n_cmp)
-            final[name] = s
-            if n_more:
-                s, diag, c2, wall2 = _timed_steps(torch, K, solver, s, dt,
-                                                  n_more)
-                c = {k: v + c2[k] for k, v in c.items()}
-                wall += wall2
+        if name == "dnn":
+            # the cells above frozen_T in each timed step's chemistry input,
+            # kept on the card until the steps end
+            net = solver.combustion.net
+            rates = net.rates
+
+            def counted(T, p, Y, rho):
+                hot.append((T > net.frozen_T).sum())
+                return rates(T, p, Y, rho)
+            net.rates = counted
+        try:
+            with _LaunchArgs(K) as spy:
+                s, diag, c, wall = _timed_steps(torch, K, solver, s, dt,
+                                                n_cmp)
+                final[name] = s
+                if n_more:
+                    s, diag, c2, wall2 = _timed_steps(torch, K, solver, s,
+                                                      dt, n_more)
+                    c = {k: v + c2[k] for k, v in c.items()}
+                    wall += wall2
+        finally:
+            if name == "dnn":
+                del net.rates
         steps = n_cmp + n_more
         counts[key], ms[key] = c, wall / steps * 1e3
         if name == "ode":
             gj_lanes = sorted({int(a[1]) for (_, _, a) in
                                spy.table().get("gj_inverse", {})})
+        else:
+            # the nets see the cells above frozen_T alone: B moves with
+            # the flame
+            mlp_lanes = sorted({int(a[0]) for (_, _, a) in
+                                spy.table().get("mlp_fused", {})})
         print(f"dnnloop {name}: {n_warm} warm-up step(s) {warm:.3f} s, "
               f"{ms[key]:.2f} ms/step "
               f"over {steps} steps, "
@@ -4788,8 +4835,16 @@ def _dnnloop_path(torch, K, rows_pool, Yb, data_run):
                 "gj_inverse" if name == "ode" else "mlp_fused")
         check(all(c[k] > 0 for k in need), f"dnnloop {name}: a kernel of "
               f"the path did not launch: {c}")
-    check(counts["dnnloop-dnn"]["mlp_fused"] == DNNLOOP_STEPS,
-          "dnnloop dnn: mlp_fused not once a step")
+    # the nets run in the steps with a cell above frozen_T, once, on those
+    # cells alone (2 epochs of training quench the flame in some steps)
+    hot = [int(h) for h in hot]
+    print(f"dnnloop dnn: cells above frozen_T in each timed step {hot} (of "
+          f"{DNNLOOP_N}); mlp_fused lanes {mlp_lanes}")
+    check(len(hot) == DNNLOOP_STEPS
+          and counts["dnnloop-dnn"]["mlp_fused"] == sum(h > 0 for h in hot)
+          and mlp_lanes == sorted({h for h in hot if h}),
+          "dnnloop dnn: mlp_fused not once on the reacting cells of each "
+          "step that has any")
     cmp = closed_loop_compare(final, info, ms_per_step={
         "ode": ms["dnnloop-ode"], "dnn": ms["dnnloop-dnn"]})
     print(f"dnnloop accuracy after {DNNLOOP_ODE_STEPS} steps of each "
@@ -4806,7 +4861,8 @@ def _dnnloop_path(torch, K, rows_pool, Yb, data_run):
                          else ())]):
         lanes.setdefault(L, []).append(label)
     rows = rows_pool.submit(_dnnloop_rows_fresh, sorted(lanes),
-                          info["dx"]).result()
+                            sorted({min(mlp_lanes), max(mlp_lanes)}),
+                            info["dx"]).result()
     for row in rows["mlp_fused"]:
         print(f"mlp_fused f32 B={row['shape'][0]} (dnnloop): "
               + json.dumps(row))
@@ -4821,10 +4877,10 @@ def _dnnloop_path(torch, K, rows_pool, Yb, data_run):
     return counts, rows, ms
 
 
-def _dnnloop_rows_fresh(lanes, dx: float) -> dict:
+def _dnnloop_rows_fresh(lanes, mlp_lanes, dx: float) -> dict:
     """In the fresh worker of phase_dnnloop (see _dist_rows_fresh): each
     kernel against its plain version at the path's shapes, float32:
-    mlp_fused at B = DNNLOOP_N and 2 DNNLOOP_N (DF-ODENet's widths), the
+    mlp_fused at each B of `mlp_lanes` (DF-ODENet's widths), the
     stencil at 1, 3 and 9 lanes of DNNLOOP_N x 1 x 1 with open boundaries,
     the Helmholtz BC form on that lattice with the flame's pressure BCs
     (spacing dx), gj_inverse (n = 10) at each of `lanes`."""
@@ -4833,10 +4889,10 @@ def _dnnloop_rows_fresh(lanes, dx: float) -> dict:
     from deepflame_torch.ops import kernels as K
     g = torch.Generator(device="cuda").manual_seed(16)
     rows = {"mlp_fused": [], "stencil7_apply": []}
-    for B in (DNNLOOP_N, 2 * DNNLOOP_N):
+    for B in mlp_lanes:
         row = _mlp_row(torch, K, g, torch.float32, B, 1e-5, reps=20, warm=3,
                        chunk=1 << 17, plain_reps=5)
-        row["path"] = "dnnloop closed loop" if B == DNNLOOP_N else "dnnloop"
+        row["path"] = "dnnloop closed loop"
         rows["mlp_fused"].append(row)
     for n_lanes in (1, 3, 9):
         row = _stencil_row(torch, K, g, (n_lanes, DNNLOOP_N, 1, 1), True)

@@ -16,6 +16,13 @@ CPU); nets of another depth take the plain version, and `fuse=False` the
 per-species loop, as in the JAX package. With bf16 compute, both round where
 the TPU kernel does (operands and each hidden activation in bf16, sums, bias
 and GELU in f32).
+
+Only the cells above the frozen temperature go through the nets, as
+DeepFlame's GPU DNN chemistry (`dfChemistrySolver`) selects them: `rates`
+gathers their inputs, runs the nets on those lanes and scatters the rates
+into zeros. The nets are per lane, so every cell gets what the nets would
+give it on the whole field. With every cell reacting it runs on the field
+as it is (no gather, no scatter); with none it runs no net.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.kernels import mlp_fused, mlp_fused_plain, mlp_pack
+from ..runtime.timers import count, span
 
 __all__ = ["DFODENet", "MultiRangeDFODENet", "init_params", "mlp_apply",
            "load_torch_checkpoint", "load_npz_checkpoint", "bct", "inv_bct",
@@ -149,10 +157,42 @@ class DFODENet(nn.Module):
         return out.to(x.dtype).reshape(lead + (-1,))
 
     def rates(self, T, p, Y, rho):
-        """RR [kg/m^3/s] for a batch: T, p, rho (...,), Y (..., ns). BCT +
-        normalize -> per-species MLP -> delta BCT -> inverse BCT ->
-        inert-preserving renormalization -> RR = (Ynew - Y) rho / delta_t,
-        zero where T <= frozen_T."""
+        """RR [kg/m^3/s] for a batch: T, p, rho (...,), Y (..., ns); zero
+        where T <= frozen_T. The cells above frozen_T are counted (one host
+        read); where some but not all are, their inputs are gathered, the
+        nets run on those lanes alone (`_lane_rates`) and the rates are
+        scattered into zeros laid out as Y. Counters `dnn.cells` and
+        `dnn.lanes` (the lanes sent to the nets); spans `dnn.select` (mask,
+        count, gather) and `dnn.scatter`."""
+        cells, ns = T.numel(), Y.shape[-1]
+        with span("dnn.select"):
+            hot = (T > self.frozen_T).reshape(-1)
+            lanes = int(hot.sum())
+            if 0 < lanes < cells:
+                idx = torch.nonzero_static(hot, size=lanes).squeeze(1)
+                lane = lambda v: v.reshape(-1).index_select(0, idx)
+                inputs = (lane(T), lane(p),
+                          Y.reshape(cells, ns).index_select(0, idx), lane(rho))
+            del hot             # freed before the nets run
+        count("dnn.cells", cells)
+        count("dnn.lanes", lanes)
+        if lanes == cells:
+            return self._lane_rates(T, p, Y, rho)
+        if lanes == 0:
+            return torch.zeros_like(Y)
+        RR_hot = self._lane_rates(*inputs)
+        with span("dnn.scatter"):
+            # `flat` is a view of `RR` where Y's cell axes merge (the
+            # solver's species-first fields), else a (cells, ns) block
+            RR = torch.zeros_like(Y, dtype=RR_hot.dtype)
+            flat = RR.reshape(cells, ns)
+            flat.index_copy_(0, idx, RR_hot)
+        return flat.view(Y.shape)
+
+    def _lane_rates(self, T, p, Y, rho):
+        """RR of every lane, reacting or not: BCT + normalize ->
+        per-species MLP -> delta BCT -> inverse BCT -> inert-preserving
+        renormalization -> RR = (Ynew - Y) rho / delta_t."""
         x_bct = torch.cat([T[..., None], p[..., None], bct(Y, self.lam)],
                           dim=-1)
         x = (x_bct - self.x_mean) / self.x_std
@@ -166,9 +206,7 @@ class DFODENet(nn.Module):
         Y_new_active = Y_new_active / torch.clamp(
             Y_new_active.sum(-1, keepdim=True), min=1e-30) * (1.0 - Y_inert)
         Y_new = torch.cat([Y_new_active, Y_inert], dim=-1)
-        RR = (Y_new - Y) * rho[..., None] / self.delta_t
-        mask = (T > self.frozen_T)[..., None]
-        return torch.where(mask, RR, 0.0)
+        return (Y_new - Y) * rho[..., None] / self.delta_t
 
 
 class MultiRangeDFODENet:

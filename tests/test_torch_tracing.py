@@ -182,6 +182,25 @@ def test_tgv_step_spans_cover_the_step(tgv):
     assert r.counters["krylov.lane_trips"] >= r.counters["krylov.lane_iters"]
 
 
+def test_tgv_step_sends_only_reacting_cells_to_the_nets(tgv):
+    """On the normal path (LowMachSolver.step -> DNNChemistry.correct) the
+    nets see the cells above frozen_T alone (the 2000 K sphere in 700 K gas
+    at frozen_T 700 K): the selection's spans sit in the chemistry span,
+    which holds its counters."""
+    solver, s0 = tgv
+    with timers.tracing() as tr:
+        solver.step(s0, DT)
+    r = tr.read()
+    chem = next(i for i, sp in enumerate(r.spans)
+                if sp.name == "lowmach.chemistry")
+    assert [sp.name for sp in r.spans if sp.parent == chem] == [
+        "dnn.select", "dnn.scatter"]
+    hot = int((s0.T > solver.combustion.net.frozen_T).sum())
+    assert 0 < hot < s0.T.numel()
+    assert r.spans[chem].counts == {"dnn.lanes": hot,
+                                    "dnn.cells": s0.T.numel()}
+
+
 def test_tgv_step_is_bitwise_the_same_with_tracing_on(tgv):
     solver, s0 = tgv
     s_off, d_off = solver.step(s0, DT)
